@@ -1,0 +1,115 @@
+"""Build ``csrc/*.cu`` into one shared library with ``nvcc`` and load it.
+
+The kernels have a plain C interface (pointers, ints and the CUDA stream),
+so the library builds in seconds without PyTorch's headers and binds with
+ctypes. It is built at first use into ``build/tsl_sdr_tpu_torch/`` beside
+the package, and rebuilt whenever a hash of the sources and flags changes.
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on anything but success.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tsl_sdr_tpu_torch"
+LIB_NAME = "libtsl_torch_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# C signatures: every pointer (and the stream) as c_void_p — ctypes would
+# otherwise pass a Python int as a 32-bit int and cut the pointer
+SIGNATURES = {
+    "tsl_chain_fm": [_P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _P],
+    "tsl_row_resample": [_P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _L, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = 0.0   # wall time of the last build (0.0 when up to date)
+ptxas_log = ""        # the compiler's per-kernel register/smem report
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return str(Path(cuda_home) / "bin" / "nvcc")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def _build(lib_path: Path, digest: str) -> None:
+    global build_seconds, ptxas_log
+    t0 = time.monotonic()
+    tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in _sources()]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, lib_path)
+    ptxas_log = res.stderr
+    (BUILD_DIR / f"{LIB_NAME}.sha256").write_text(digest)
+    build_seconds = time.monotonic() - t0
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first if it is missing or stale."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        lib_path = BUILD_DIR / LIB_NAME
+        stamp = BUILD_DIR / f"{LIB_NAME}.sha256"
+        digest = _digest()
+        # one build at a time across processes sharing the checkout
+        with open(BUILD_DIR / "build.lock", "w") as lk:
+            fcntl.flock(lk, fcntl.LOCK_EX)
+            if not (lib_path.exists() and stamp.exists()
+                    and stamp.read_text() == digest):
+                _build(lib_path, digest)
+        lib = ctypes.CDLL(str(lib_path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.tsl_error_string.argtypes = [ctypes.c_int]
+        lib.tsl_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = load().tsl_error_string(err).decode()
+        raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")

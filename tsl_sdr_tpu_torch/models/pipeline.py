@@ -1,0 +1,815 @@
+"""End-to-end receive pipeline: channelize -> resample -> protocol decode.
+
+Port of the production streaming engine of
+``tsl_sdr_tpu/models/pipeline.py`` (``:85-1055, 1294-1358, 1526-1547``).
+Every device stage of a block runs in one call, :meth:`_SizedProgram.dev_step`:
+
+1. widen 8-bit wire bytes;
+2. channelize + FM-demodulate (kernel K1, ``ops.chain``);
+3. invert polarity;
+4. resample each ratio group (kernel K3, ``ops.row_resampler``, one launch
+   for all channels of the group);
+5. DC-block (chunked linear scan, ``ops.dc_blocker``);
+6. sign-slice, sync prefilter and bit-pack (``ops.sync_prefilter``).
+
+The host uploads each block from pinned memory, starts the device->host
+copies of the small gated outputs as soon as the block is queued, keeps
+``inflight_depth`` blocks in flight, and drains the oldest into the
+POCSAG/FLEX/AIS decoders (the JAX package's own numpy modules). The egress
+buffers keep the JAX engine's layout byte for byte, so the drain logic is
+the same code.
+
+Egress gating: a channel whose block raised no sync candidate sends only its
+flag and carried tail; its decoder does no work.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from collections import deque
+from dataclasses import dataclass
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+from tsl_sdr_tpu.utils.filter_design import design_rational_resampler_filter
+from tsl_sdr_tpu.utils.iq import WIRE_DTYPES, WIRE_ZERO, widen_iq_bytes
+from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
+from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
+from tsl_sdr_tpu_torch.ops import polyphase, q14, sync_prefilter
+
+PROTOCOL_RATES = {"pocsag": 38_400, "flex": 16_000, "ais": 48_000}
+# largest resampler interpolation/decimation term a channel may need
+MAX_RATIO = 256
+
+_TORCH_WIRE = {np.dtype(np.int16): torch.int16,
+               np.dtype(np.int8): torch.int8,
+               np.dtype(np.uint8): torch.uint8}
+
+
+def _make_decoder(protocol: str, freq_hz: int, ais_packet_hook=None):
+    if protocol == "pocsag":
+        from tsl_sdr_tpu.models.pocsag import PocsagDecoder
+
+        return PocsagDecoder()
+    if protocol == "flex":
+        from tsl_sdr_tpu.models.flex import FlexDecoder
+
+        return FlexDecoder(freq_hz=freq_hz)
+    if protocol == "ais":
+        from tsl_sdr_tpu.models.ais import AisDecoder
+
+        hook = None
+        if ais_packet_hook is not None:
+            # pipeline hook contract: callable(packet, center_freq_hz)
+            def hook(packet, _f=freq_hz, _h=ais_packet_hook):
+                _h(packet, _f)
+        return AisDecoder(packet_hook=hook)
+    raise ValueError(f"unknown protocol {protocol!r}")
+
+
+@dataclass
+class ChannelSpec:
+    """One narrowband channel: where it sits and what it speaks (the JAX
+    package's ``ChannelSpec``, whose module imports jax)."""
+
+    center_freq_hz: int
+    protocol: str  # pocsag | flex | ais | pcm (raw demodulated audio)
+    invert: bool = False
+    dc_block: bool = False       # decoder -b flag (decoder/decoder.c:648-656)
+    dc_block_pole: float = 0.9999
+    db_gain: float | None = None  # per-channel dBGain (receiver.c:218-221)
+
+
+def widen_wire(vals: torch.Tensor, wire_fmt: str) -> torch.Tensor:
+    """Raw wire values -> int16 IQ values, on the device. An 8-bit block
+    ships 2 B/sample instead of int16's 4 and widens here, bit-identical to
+    the host rules in ``utils.iq.widen_iq_bytes`` (reference
+    ``multifm/rtl_sdr_if.c:118-147``, ``file_if.c:85-157``)."""
+    if wire_fmt == "cs16":
+        return vals
+    if wire_fmt == "cs8":
+        return vals.to(torch.int16)
+    if wire_fmt in ("cu8", "cu8_unbiased"):
+        return vals.to(torch.int16) - 127
+    if wire_fmt == "rtl_u8":
+        return (vals.to(torch.int16) - 127) << 7
+    raise ValueError(f"unknown wire_fmt {wire_fmt!r}")
+
+
+def to_int16(x: torch.Tensor) -> torch.Tensor:
+    """float -> int16 as the JAX package's ``astype(jnp.int16)``: truncate
+    toward zero, saturate at the int16 range (a bare ``.to(torch.int16)``
+    of an out-of-range float is not specified)."""
+    if not x.is_floating_point():
+        return x.to(torch.int16)
+    return torch.clamp(x, -32768, 32767).to(torch.int16)
+
+
+class _HostCopy:
+    """A device->host copy started now and waited for at :meth:`numpy`:
+    into pinned memory with ``non_blocking=True`` and a CUDA event on the
+    card, the tensor itself on the CPU."""
+
+    def __init__(self, t: torch.Tensor):
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t.contiguous()
+            self._event = None
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+class _SizedProgram:
+    """Everything bound to one block length: per-ratio-group resampler
+    plans with ``block_in`` equal to the block's per-channel span (one
+    resample step consumes the block), their device taps, and the fused
+    per-block device step."""
+
+    def __init__(self, pipe: "ReceivePipeline", n: int):
+        chain = pipe.chain
+        decim = chain.decimation
+        if n % pipe.block_quantum:
+            raise ValueError(f"block of {n} samples is not a multiple of "
+                             f"the {pipe.block_quantum}-sample quantum")
+        k_chain = n // decim
+        dev = pipe.device
+
+        self.plans = {}
+        self.rs_taps = {}
+        for gid in pipe._rs_groups:
+            i_, d_ = gid
+            plan = polyphase.make_resampler_plan(
+                q14.quantize_q14(pipe._rs_coeffs[gid]), i_, d_,
+                block_out_target=k_chain * i_ // d_,
+                align_k_row=False,  # n_in must equal k_chain exactly
+            )
+            if plan.block_in != k_chain:
+                raise ValueError(f"resampler plan consumes {plan.block_in} "
+                                 f"samples per block, the chain gives "
+                                 f"{k_chain}")
+            self.plans[gid] = plan
+            self.rs_taps[gid] = polyphase.row_taps(plan, device=dev)
+        self.k_out = {
+            i: (self.plans[pipe._ratio_gid[i]].block_out
+                if pipe._ratio_gid[i] is not None else k_chain)
+            for i in range(len(pipe.channels))
+        }
+        self.rs_idx = {gid: torch.tensor(idxs, device=dev)
+                       for gid, idxs in pipe._rs_groups.items()}
+        inv = [s.invert for s in pipe.channels]
+        self.inv_mask = (torch.tensor(inv, device=dev)[:, None]
+                         if any(inv) else None)
+        self.pipe = pipe
+        # combined pack payload layout, in ELEMENTS of the group's dtype:
+        # bits kind [flags u8 | packed tail bytes | packed bits], pcm kind
+        # [flags i16 | tail pcm samples | pcm samples]
+        self.meta_bytes = {
+            pgid: (1 + pipe._tail_bits[pgid] if pg["kind"] == "pcm"
+                   else 1 + pipe._tail_bits[pgid] // 8)
+            for pgid, pg in pipe._pack_groups.items()
+        }
+
+    def init_rs_states(self) -> dict:
+        return {gid: polyphase.init_resampler_carry(
+                    self.plans[gid], len(idxs), device=self.pipe.device)
+                for gid, idxs in self.pipe._rs_groups.items()}
+
+    def dev_step(self, st: dict, vals: torch.Tensor):
+        """One block on the device: (state, flat wire values) -> (state,
+        (pack_out, raw_out))."""
+        pipe = self.pipe
+        chain = pipe.chain
+        c = chain.nr_channels
+        vals = widen_wire(vals, pipe.wire_fmt)
+        chain_st, pcm_flat = chain._step_raw(st["chain"], vals)
+        pcm = pcm_flat.reshape(-1, c).T  # [C, K]
+        if self.inv_mask is not None:
+            flipped = torch.clamp(-pcm.to(torch.int32), -32768,
+                                  32767).to(torch.int16)
+            pcm = torch.where(self.inv_mask, flipped, pcm)
+        ch_rows = {}
+        rs2 = {}
+        for gid, idxs in pipe._rs_groups.items():
+            rows = pcm[self.rs_idx[gid]]  # [G, K]
+            rs2[gid], outs = polyphase.resample_step(
+                self.plans[gid], st["rs"][gid], rows, self.rs_taps[gid])
+            for j, i in enumerate(idxs):
+                ch_rows[i] = outs[j]
+        for i in range(len(pipe.channels)):
+            if i not in ch_rows:
+                ch_rows[i] = pcm[i]
+        dc2 = {}
+        for i, coeff in pipe._dc_items:
+            dc2[i], ch_rows[i] = dcb.dc_blocker_step_fast(
+                st["dc"][i], to_int16(ch_rows[i]), coeff)
+        tails2 = {}
+        pack_out = {}
+        for pgid, pg in pipe._pack_groups.items():
+            tail = pipe._tail_bits[pgid]
+            rows = torch.stack([ch_rows[i] for i in pg["idx"]])
+            if pg["kind"] == "pcm":
+                # FLEX: the decoder needs real amplitudes (trained 4FSK
+                # thresholds), but its SYNC_1 hunt is the sign slice
+                # pcm >= 0 — prefilter here, gate the int16 rows
+                rows = to_int16(rows)
+                predu = (rows >= 0).to(torch.uint8)
+                k_out = rows.shape[1]
+                full = torch.cat([st["tails"][pgid], predu], dim=1)
+                flags = sync_prefilter.flex_any_candidate(full, k_out)
+                tails2[pgid] = full[:, -tail:].contiguous()
+                # ONE int16 buffer: [flag | last TAIL pcm | pcm rows]
+                pack_out[pgid] = torch.cat(
+                    [flags.to(torch.int16)[:, None], rows[:, -tail:], rows],
+                    dim=1)
+                continue
+            if rows.is_floating_point():
+                # the host oracle and the C reference slice int16-TRUNCATED
+                # PCM: a -0.4 sample is bit 0, not bit 1
+                rows = torch.trunc(rows)
+            pred = (rows > 0) if pg["is_gt"] else (rows < 0)
+            predu = pred.to(torch.uint8)
+            k_out = predu.shape[1]
+            full = torch.cat([st["tails"][pgid], predu], dim=1)
+            if pgid == "pocsag":
+                flags = sync_prefilter.pocsag_any_candidate(full, k_out)
+            else:
+                flags = sync_prefilter.ais_any_candidate(full, k_out)
+            tails2[pgid] = full[:, -tail:].contiguous()
+            # ONE output buffer per group: flags byte + packed tail +
+            # packed bits — a single device->host transfer unit
+            pack_out[pgid] = torch.cat(
+                [flags.to(torch.uint8)[:, None],
+                 sync_prefilter.packbits(tails2[pgid]),
+                 sync_prefilter.packbits(predu)], dim=1)
+        raw_out = {rgid: to_int16(torch.stack([ch_rows[i] for i in idxs]))
+                   for rgid, idxs in pipe._raw_groups.items()}
+        st2 = {"chain": chain_st, "rs": rs2, "dc": dc2, "tails": tails2}
+        return st2, (pack_out, raw_out)
+
+
+class ReceivePipeline:
+    """Wideband IQ in, decoded protocol messages (or raw PCM) out.
+
+    Parameters
+    ----------
+    lpf_taps : channel-select LPF for the channelizer (shared, real)
+    center_freq_hz : capture center frequency
+    sample_rate : wideband sample rate (Hz)
+    decimation : channelizer decimation; channel rate = fs / decimation
+    channels : list of :class:`ChannelSpec`
+    exact : the bit-exact tier is not ported; must be False
+    block_size : streaming block length in wideband samples (rounded to the
+        pipeline quantum); default ~4M
+    inflight_depth : blocks kept in flight before the oldest is drained
+    ais_packet_hook : callable(packet_bytes, center_freq_hz) for every
+        CRC-valid AIS packet
+    wire_fmt : input wire format; 8-bit formats take raw wire bytes and
+        widen on the device
+    device : "cuda" (default) or "cpu"; CUDA must be present when asked for
+    """
+
+    # protocols whose decoders consume ONLY a sign predicate of the PCM, so
+    # the device slices + bit-packs before transfer. FLEX is gated too but
+    # with an int16 payload ("pcm" kind). value = is_gt: True slices
+    # pcm > 0 (ais_demod.c:126), False pcm < 0 (pager_pocsag.c:91)
+    _PACK_PREDICATE = {"pocsag": False, "ais": True}
+
+    def __init__(self, lpf_taps, center_freq_hz: int, sample_rate: float,
+                 decimation: int, channels, *, exact: bool = False,
+                 block_size: int | None = None,
+                 inflight_depth: int = 2, ais_packet_hook=None,
+                 wire_fmt: str = "cs16", device="cuda"):
+        if exact:
+            raise NotImplementedError(
+                "the bit-exact tier is not yet ported to tsl_sdr_tpu_torch")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' but CUDA is not available")
+        if wire_fmt not in WIRE_DTYPES:
+            raise ValueError(f"unknown wire_fmt {wire_fmt!r}; expected one "
+                             f"of {tuple(WIRE_DTYPES)}")
+        self.wire_fmt = wire_fmt
+        self._wire_dtype = np.dtype(WIRE_DTYPES[wire_fmt])
+        self._wire_zero = WIRE_ZERO[wire_fmt]
+        # e2e breakdown instrumentation: set ``pipe.timing = {}`` and the
+        # engine accumulates HOST-BLOCKED seconds per phase (upload /
+        # dispatch / egress start / drain wait / unpack / decode); the host
+        # loop is serial, so they sum to wall time. None = no overhead.
+        self.timing = None
+        self._ais_packet_hook = ais_packet_hook
+        self.inflight_depth = int(inflight_depth)
+        self.channels = list(channels)
+        offsets = [c.center_freq_hz - center_freq_hz for c in self.channels]
+        gains = [
+            10.0 ** (c.db_gain / 10.0) if c.db_gain is not None else 1.0
+            for c in self.channels
+        ]
+        self.chain = MultifmChain(lpf_taps, offsets, sample_rate, decimation,
+                                  gains=gains, device=self.device)
+        ch_rate = self.chain.channel_rate
+
+        self._decoders = []
+        self._ratio_gid = []
+        self._rs_coeffs = {}
+        for spec in self.channels:
+            if spec.protocol == "pcm":
+                self._decoders.append(None)
+                self._ratio_gid.append(None)
+                continue
+            target = PROTOCOL_RATES[spec.protocol]
+            ratio = Fraction(target, int(round(ch_rate)))
+            if max(ratio.numerator, ratio.denominator) > MAX_RATIO:
+                raise ValueError(
+                    f"channel rate {ch_rate:.0f} Hz -> {target} Hz needs "
+                    f"{ratio.numerator}/{ratio.denominator}; pick a "
+                    "decimation giving a simpler ratio")
+            if ratio == 1:
+                self._ratio_gid.append(None)
+            else:
+                gid = (ratio.numerator, ratio.denominator)
+                if gid not in self._rs_coeffs:
+                    self._rs_coeffs[gid] = design_rational_resampler_filter(
+                        ratio.numerator, ratio.denominator, 0.4)
+                self._ratio_gid.append(gid)
+            self._decoders.append(_make_decoder(
+                spec.protocol, spec.center_freq_hz, self._ais_packet_hook))
+
+        self._setup_stream(block_size)
+
+    # -- streaming engine ---------------------------------------------------
+
+    def _setup_stream(self, block_size):
+        decim = self.chain.decimation
+        self._rs_groups: dict = {}
+        for i, gid in enumerate(self._ratio_gid):
+            if gid is not None:
+                self._rs_groups.setdefault(gid, []).append(i)
+        self._dc_items = [(i, dcb.make_pole_coeff(spec.dc_block_pole))
+                          for i, spec in enumerate(self.channels)
+                          if spec.dc_block]
+        self._pack_groups: dict = {}
+        self._raw_groups: dict = {}
+        for i, spec in enumerate(self.channels):
+            if spec.protocol in self._PACK_PREDICATE:
+                pg = self._pack_groups.setdefault(
+                    spec.protocol,
+                    {"idx": [], "kind": "bits",
+                     "is_gt": self._PACK_PREDICATE[spec.protocol]})
+                pg["idx"].append(i)
+            elif spec.protocol == "flex":
+                pg = self._pack_groups.setdefault(
+                    spec.protocol, {"idx": [], "kind": "pcm"})
+                pg["idx"].append(i)
+            else:
+                self._raw_groups.setdefault(spec.protocol, []).append(i)
+        self._tail_bits = {
+            "pocsag": sync_prefilter.POCSAG_TAIL,
+            "ais": sync_prefilter.AIS_TAIL,
+            "flex": sync_prefilter.FLEX_TAIL,
+        }
+
+        # block quantum: chain quantum, every resampler's input grid, each
+        # group's packed-row input grid, and a whole number of channel
+        # samples per byte of packed bits
+        q = self.chain.block_quantum
+        for (i_, d_) in self._rs_groups:
+            q = math.lcm(q, decim * d_)
+            k_row = math.lcm(i_, 128)
+            if k_row <= 1024:
+                row_in = (k_row // i_) * d_
+                q = math.lcm(q, decim * row_in)
+        q = math.lcm(q, decim * 8)
+        self.block_quantum = q
+        bs = block_size or 4_194_304
+        self.block_size = max(q, bs // q * q)
+        # gap-tail soundness: every pack channel's per-block output must
+        # cover the carried prefilter tail
+        min_n = 0
+        for pgid, pg in self._pack_groups.items():
+            tail = self._tail_bits[pgid]
+            for i in pg["idx"]:
+                gid = self._ratio_gid[i]
+                if gid is None:
+                    need = tail * decim
+                else:
+                    i_, d_ = gid
+                    need = -(-tail * d_ // i_) * decim
+                min_n = max(min_n, need)
+        if min_n:
+            self.block_size = max(self.block_size, -(-min_n // q) * q)
+
+        self._programs: dict[int, _SizedProgram] = {}
+        self._stream = None
+        self._last_stream_stats = None
+        self._pending_prefix = np.zeros((0, 2), self._wire_dtype)
+        self._uploads = []   # pinned staging ring: [buffer, event] pairs
+        self._upload_next = 0
+
+    def _program(self, n: int) -> _SizedProgram:
+        if n not in self._programs:
+            self._programs[n] = _SizedProgram(self, n)
+        return self._programs[n]
+
+    def stream_reset(self):
+        """Forget all streaming state (device carries, input buffer,
+        in-flight blocks). Decoder instances persist."""
+        self._stream = None
+        self._pending_prefix = np.zeros((0, 2), self._wire_dtype)
+
+    # -- wire-format helpers -------------------------------------------------
+
+    def _coerce_wire(self, iq) -> np.ndarray:
+        """Raw wire bytes (bytes / flat or [N, 2] 8-bit array) -> [N, 2]
+        wire-dtype view. Only 8-bit input is reinterpreted: anything wider
+        (a host-widened int16 capture, say) raises instead of turning into
+        twice as many garbage samples."""
+        if isinstance(iq, (bytes, bytearray, memoryview)):
+            iq = np.frombuffer(iq, np.uint8)
+        flat = np.asarray(iq).reshape(-1)
+        if flat.dtype.itemsize != 1 or flat.dtype.kind not in "iu":
+            raise ValueError(
+                f"wire_fmt {self.wire_fmt!r} takes raw 8-bit wire bytes, "
+                f"got {flat.dtype}")
+        return flat.view(self._wire_dtype).reshape(-1, 2)
+
+    def _widen_host(self, arr) -> np.ndarray:
+        """[N, 2] wire-dtype -> [N, 2] int16 by the host rules."""
+        if self.wire_fmt == "cs16":
+            return np.asarray(arr, np.int16)
+        flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+        return widen_iq_bytes(flat, self.wire_fmt).reshape(-1, 2)
+
+    def _stream_init(self, prefix: np.ndarray | None):
+        if prefix is not None and self.wire_fmt != "cs16":
+            # the chain's carry prefix is tiny (carry_len samples); widen
+            # it on the host — the bulk blocks widen on the device
+            prefix = self._widen_host(prefix)
+        prog = self._program(self.block_size)
+        dev = self.device
+        st = {
+            "chain": self.chain.init_state(prefix=prefix),
+            "rs": prog.init_rs_states(),
+            "dc": {i: dcb.init_dc_blocker_state(device=dev)
+                   for i, _ in self._dc_items},
+            "tails": {
+                pgid: torch.zeros((len(pg["idx"]), self._tail_bits[pgid]),
+                                  dtype=torch.uint8, device=dev)
+                for pgid, pg in self._pack_groups.items()
+            },
+        }
+        self._stream = {
+            "st": st,
+            "buf": [],
+            "buf_len": 0,
+            "inflight": deque(),
+            # zero-primed resampler carries time-shift the output grid by
+            # carry_len channel samples vs the head-primed host path; the
+            # first ceil(carry_len*I/D) outputs are zero-history transient
+            # and are dropped so decoders never see fabricated samples
+            "lead_drop": {
+                i: -(-prog.plans[gid].carry_len
+                     * prog.plans[gid].interpolation
+                     // prog.plans[gid].decimation)
+                for gid, idxs in self._rs_groups.items()
+                for i in idxs
+            },
+            # host-side per-pack-channel gating state
+            "gap": {i: False for pg in self._pack_groups.values()
+                    for i in pg["idx"]},
+            "tail_pcm": {i: None for pg in self._pack_groups.values()
+                         for i in pg["idx"]},
+            "blocks": 0,
+            "fetched": np.zeros(len(self.channels), np.int64),
+            "upload_elems": 0,
+            "upload_bytes": 0,
+            # a pack group that fetched rows last block is "hot": its next
+            # payload streams to the host whole; cold groups send only the
+            # flags + tail head (egress gating)
+            "hot": {pgid: True for pgid in self._pack_groups},
+        }
+
+    @property
+    def stream_stats(self) -> dict:
+        """{"blocks": drained blocks, "fetched": per-channel full-row fetch
+        counts, "upload_elems", "upload_bytes"}."""
+        s = self._stream
+        if s is None:
+            if self._last_stream_stats is not None:
+                return dict(self._last_stream_stats)
+            return {"blocks": 0,
+                    "fetched": np.zeros(len(self.channels), np.int64),
+                    "upload_elems": 0, "upload_bytes": 0}
+        return {"blocks": s["blocks"], "fetched": s["fetched"].copy(),
+                "upload_elems": s["upload_elems"],
+                "upload_bytes": s["upload_bytes"]}
+
+    def push(self, iq) -> list:
+        """Feed wideband IQ (any length); decode what completes.
+
+        Returns a per-channel list of messages (or raw PCM arrays for
+        ``pcm`` channels) completed during this call. State carries across
+        calls (reference run-forever semantics, multifm/multifm.c:163-165).
+        """
+        new = [[] for _ in self.channels]
+        for block in self._pump_blocks(iq):
+            self._dispatch(block)
+            s = self._stream
+            while len(s["inflight"]) > self.inflight_depth:
+                self._drain(s["inflight"].popleft(), new)
+        return new
+
+    def _pump_blocks(self, iq):
+        """Hold data until the chain prefix is covered, prime the stream,
+        buffer, and yield full block_size blocks."""
+        if self.wire_fmt == "cs16":
+            iq = np.asarray(iq, np.int16).reshape(-1, 2)
+        else:
+            iq = self._coerce_wire(iq)
+        if self._stream is None:
+            c_len = self.chain.carry_len
+            pend = np.concatenate([self._pending_prefix, iq])
+            if pend.shape[0] < c_len + 1:
+                self._pending_prefix = pend
+                return
+            self._stream_init(pend[:c_len] if c_len else None)
+            self._pending_prefix = np.zeros((0, 2), self._wire_dtype)
+            iq = pend[c_len:]
+        s = self._stream
+        s["buf"].append(iq)
+        s["buf_len"] += iq.shape[0]
+        while s["buf_len"] >= self.block_size:
+            buf = (np.concatenate(s["buf"]) if len(s["buf"]) > 1
+                   else s["buf"][0])
+            block = buf[: self.block_size]
+            rest = buf[self.block_size:]
+            s["buf"] = [rest] if rest.shape[0] else []
+            s["buf_len"] = rest.shape[0]
+            yield block
+
+    def _flush_unprimed(self) -> list:
+        """Flush before the stream ever primed: error if data was pushed."""
+        if self._pending_prefix.shape[0]:
+            raise ValueError(
+                f"capture shorter than the pipeline prefix "
+                f"({self._pending_prefix.shape[0]} <= "
+                f"{self.chain.carry_len} samples); nothing processed")
+        return [[] for _ in self.channels]
+
+    def _tick(self, key: str, t0: float) -> float:
+        """Accumulate host-blocked seconds into ``self.timing[key]``."""
+        t1 = time.perf_counter()
+        self.timing[key] = self.timing.get(key, 0.0) + (t1 - t0)
+        return t1
+
+    def _upload(self, flat: np.ndarray) -> torch.Tensor:
+        """Host block -> device tensor. On the card: through a ring of two
+        pinned staging buffers, copied with ``non_blocking=True``; a buffer
+        is refilled only after its previous copy has completed."""
+        if self.device.type == "cpu":
+            return torch.from_numpy(flat)
+        n = flat.shape[0]
+        if not self._uploads or self._uploads[0][0].numel() != n:
+            self._uploads = [
+                [torch.empty(n, dtype=_TORCH_WIRE[flat.dtype],
+                             pin_memory=True), None] for _ in range(2)]
+        slot = self._uploads[self._upload_next]
+        self._upload_next = (self._upload_next + 1) % len(self._uploads)
+        if slot[1] is not None:
+            slot[1].synchronize()
+        np.copyto(slot[0].numpy(), flat)
+        vals = slot[0].to(self.device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+        return vals
+
+    def _dispatch(self, block: np.ndarray, valid_n: int | None = None):
+        tm = self.timing
+        if tm is not None:
+            t0 = time.perf_counter()
+        s = self._stream
+        prog = self._program(block.shape[0])
+        flat = np.ascontiguousarray(block).reshape(-1)
+        vals = self._upload(flat)
+        s["upload_elems"] += flat.shape[0]
+        s["upload_bytes"] += flat.nbytes
+        if tm is not None:
+            t0 = self._tick("upload_s", t0)
+        s["st"], outs = prog.dev_step(s["st"], vals)
+        if tm is not None:
+            t0 = self._tick("dispatch_s", t0)
+        # start device->host copies now so they overlap the next block's
+        # compute. Hot groups stream their whole payload; cold (idle)
+        # groups only the small flags+tail head (egress gating).
+        pack_out, raw_out = outs
+        pre = {}
+        for pgid, combined in pack_out.items():
+            if s["hot"][pgid]:
+                pre[pgid] = ("full", _HostCopy(combined))
+            else:
+                pre[pgid] = ("head", _HostCopy(
+                    combined[:, :prog.meta_bytes[pgid]]))
+        raws = {rgid: _HostCopy(rows) for rgid, rows in raw_out.items()}
+        if tm is not None:
+            self._tick("egress_start_s", t0)
+        s["inflight"].append((prog, pack_out, pre, raws, valid_n))
+
+    def _valid_k(self, prog, i: int, valid_n: int | None) -> int:
+        """Real (non-pad) output samples of channel ``i`` for a block whose
+        first ``valid_n`` wideband samples are real."""
+        if valid_n is None:
+            return prog.k_out[i]
+        k_chain = valid_n // self.chain.decimation
+        gid = self._ratio_gid[i]
+        if gid is None:
+            return min(k_chain, prog.k_out[i])
+        i_, d_ = gid
+        return min(k_chain * i_ // d_, prog.k_out[i])
+
+    def _drain(self, entry, new: list):
+        tm = self.timing
+        if tm is not None:
+            t0 = time.perf_counter()
+        prog, pack_out, pre, raw_copies, valid_n = entry
+        raws = {rgid: cp.numpy() for rgid, cp in raw_copies.items()}
+        if tm is not None:
+            t0 = self._tick("drain_wait_s", t0)
+
+        s = self._stream
+        s["blocks"] += 1
+        for pgid, pg in self._pack_groups.items():
+            mb = prog.meta_bytes[pgid]
+            kind, copy = pre[pgid]
+            if tm is not None:
+                t0 = time.perf_counter()
+            host = copy.numpy()
+            if tm is not None:
+                t0 = self._tick("drain_wait_s", t0)
+            meta = host[:, :mb]
+            flags = meta[:, 0].astype(bool)
+            tail_cols = meta[:, 1:mb]
+            pcm_kind = pg["kind"] == "pcm"
+            is_gt = pg.get("is_gt")
+            # rows needing a full fetch: flagged, or decoder mid-message,
+            # or gating unsupported
+            need_rows = []
+            for row, i in enumerate(pg["idx"]):
+                dec = self._decoders[i]
+                gate = getattr(dec, "supports_gating", False)
+                if flags[row] or not gate or not dec.in_search:
+                    need_rows.append(row)
+            if need_rows:
+                if kind == "full":
+                    packed = host[np.asarray(need_rows), mb:]
+                else:
+                    # cold group turning active: fetch the whole payload
+                    # once (a rare edge) and index on the host
+                    if tm is not None:
+                        t0 = time.perf_counter()
+                    full = _HostCopy(pack_out[pgid]).numpy()
+                    packed = full[np.asarray(need_rows), mb:]
+                    if tm is not None:
+                        t0 = self._tick("drain_wait_s", t0)
+            s["hot"][pgid] = bool(need_rows)
+            # the zero-history resampler transient (lead_drop) is consumed
+            # by EVERY block's outputs, fetched or gated
+            ld0 = {i: s["lead_drop"].get(i, 0) for i in pg["idx"]}
+            for row, i in enumerate(pg["idx"]):
+                if ld0[i]:
+                    vk = self._valid_k(prog, i, valid_n)
+                    s["lead_drop"][i] = max(ld0[i] - vk, 0)
+            if tm is not None:
+                t0 = time.perf_counter()
+            for j, row in enumerate(need_rows):
+                i = pg["idx"][row]
+                s["fetched"][i] += 1
+                dec = self._decoders[i]
+                vk = self._valid_k(prog, i, valid_n)
+                if pcm_kind:
+                    pcm = packed[j][:vk].astype(np.int16)
+                else:
+                    bits = np.unpackbits(packed[j])[:vk]
+                    pcm = (np.where(bits, 1, -1) if is_gt
+                           else np.where(bits, -1, 1)).astype(np.int16)
+                if ld0[i]:
+                    pcm = pcm[min(ld0[i], len(pcm)):]
+                if s["gap"][i]:
+                    dec.notify_gap()
+                    tp = s["tail_pcm"][i]
+                    if tp is not None:
+                        pcm = np.concatenate([tp, pcm])
+                    s["gap"][i] = False
+                if tm is not None:
+                    t0 = self._tick("unpack_s", t0)
+                new[i].extend(dec.scan(pcm))
+                if tm is not None:
+                    t0 = self._tick("decode_s", t0)
+            for row, i in enumerate(pg["idx"]):
+                if row not in need_rows:
+                    s["gap"][i] = True
+                if pcm_kind:
+                    tail = tail_cols[row].astype(np.int16)
+                else:
+                    tb = np.unpackbits(tail_cols[row])
+                    tail = (np.where(tb, 1, -1) if is_gt
+                            else np.where(tb, -1, 1)).astype(np.int16)
+                if ld0[i]:
+                    # the tail covers output positions [vk-T, vk); if the
+                    # transient reaches into it, its head is fabricated
+                    vk = self._valid_k(prog, i, valid_n)
+                    cut = min(ld0[i], vk) - (vk - len(tail))
+                    if cut > 0:
+                        tail = tail[cut:]
+                s["tail_pcm"][i] = tail
+
+        for rgid, idxs in self._raw_groups.items():
+            rows = raws[rgid]
+            for j, i in enumerate(idxs):
+                audio = rows[j].astype(np.int16)[
+                    : self._valid_k(prog, i, valid_n)]
+                ld = s["lead_drop"].get(i, 0)
+                if ld:
+                    take = min(ld, len(audio))
+                    audio = audio[take:]
+                    s["lead_drop"][i] = ld - take
+                dec = self._decoders[i]
+                if tm is not None:
+                    t0 = time.perf_counter()
+                if dec is None:
+                    new[i].append(audio)
+                else:
+                    new[i].extend(dec.scan(audio))
+                if tm is not None:
+                    t0 = self._tick("decode_s", t0)
+
+    def flush(self) -> list:
+        """Drain in-flight blocks and process the buffered tail.
+
+        The tail is padded with the wire format's zero level up to the full
+        block size (reusing the block's program) and the pad-derived output
+        samples are trimmed before any decoder or pcm channel sees them."""
+        s = self._stream
+        if s is None:
+            return self._flush_unprimed()
+        new = [[] for _ in self.channels]
+        padded = False
+        if s["buf_len"]:
+            valid = s["buf_len"]
+            buf = (np.concatenate(s["buf"]) if len(s["buf"]) > 1
+                   else s["buf"][0])
+            block = np.full((self.block_size, 2), self._wire_zero,
+                            self._wire_dtype)
+            block[:valid] = buf
+            s["buf"] = []
+            s["buf_len"] = 0
+            self._dispatch(block, valid_n=valid)
+            padded = True
+        while s["inflight"]:
+            self._drain(s["inflight"].popleft(), new)
+        if padded:
+            # the device carries have consumed pad zeros; a later push()
+            # must not splice real samples onto that history
+            self._last_stream_stats = self.stream_stats
+            self.stream_reset()
+        return new
+
+    def warm_device(self) -> float:
+        """Pre-pay this process's device start-up (CUDA context, kernel
+        build and load, allocator growth) on one throwaway block of the
+        wire format's zero level. Stream state and decoders end untouched
+        (silence keeps every decoder in SEARCH; the stream is reset).
+        No-op on an already-primed stream. Returns wall seconds spent."""
+        if self._stream is not None or self._pending_prefix.shape[0]:
+            return 0.0
+        t0 = time.monotonic()
+        n = self.chain.carry_len + self.block_size + 1024
+        self.push(np.full((n, 2), self._wire_zero, self._wire_dtype))
+        self.flush()
+        self.stream_reset()
+        self._last_stream_stats = None
+        return time.monotonic() - t0
+
+    # -- whole-capture API ---------------------------------------------------
+
+    def process_capture(self, iq):
+        """Run a whole capture through the streaming engine. Returns a list
+        (one entry per channel) of decoded message lists, or the raw int16
+        PCM for ``pcm`` channels."""
+        self.stream_reset()
+        results = self.push(iq)
+        for i, part in enumerate(self.flush()):
+            results[i].extend(part)
+        for i, spec in enumerate(self.channels):
+            if spec.protocol == "pcm":
+                results[i] = (np.concatenate(results[i]) if results[i]
+                              else np.zeros(0, np.int16))
+        return results

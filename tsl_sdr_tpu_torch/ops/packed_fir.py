@@ -1,0 +1,191 @@
+"""Lane-packed multi-channel decimating FIR: numpy plan + plain torch step.
+
+Port of ``tsl_sdr_tpu/ops/packed_fir.py:62-193`` (plan builder, copied as
+numpy because the JAX module imports jax at load) and ``:321-403`` (the
+streaming step). The interleaved int16 stream is cut into rows of
+``ROW = lcm(2*D, 128)`` values; each row yields ``OPR = ROW/(2*D)``
+decimated outputs per channel, and output row ``r`` is
+
+    P[r] = sum_i rows[r + i] @ W_i          (i = 0 .. cr)
+
+over the ``cr + 1`` tap chunks ``W_i [ROW, 2*OPR*C]`` (column layout
+``[re/im, j, c]``). The chunked product is what kernel K1
+(:mod:`tsl_sdr_tpu_torch.ops.chain`) computes in int32 on the card; the
+plain version here multiplies in float64, where int16 x int16 sums of a few
+thousand terms are exact, and wraps to int32 like the reference's MAC.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tsl_sdr_tpu_torch.ops import q14
+from tsl_sdr_tpu_torch.ops.fir import design_channel_taps
+
+
+class PackedFirPlan(NamedTuple):
+    """Static host-side plan for the lane-packed channel bank (same fields
+    as the JAX package's, so plans convert one to one)."""
+
+    w_chunks: tuple       # tuple of np.ndarray [ROW, COLS] f32 tap chunks
+    w_chunks_i16: tuple   # same layout, int16 Q.14
+    rot_incr_i32: np.ndarray  # [C, 2] int32 Q.14 derotator increment
+    omega_d: np.ndarray  # [C] float64: per-output derotation increment (rad)
+    row: int             # values per packed row (= lcm(2D, 128))
+    opr: int             # outputs per row (= row / (2D))
+    win: int             # window span in values (= row - 2D + 2T)
+    cr_rows: int         # carried history rows
+    decimation: int
+    nr_taps: int
+    nr_channels: int
+    chunk_nnz: tuple = ()  # per-chunk nonzero-row count (128-rounded)
+
+    @property
+    def carry_vals(self) -> int:
+        return self.cr_rows * self.row
+
+    @property
+    def carry_len(self) -> int:
+        """Carry length in samples (for stream-prefix priming)."""
+        return self.carry_vals // 2
+
+    @property
+    def block_quantum(self) -> int:
+        """Block lengths must be a multiple of this many samples."""
+        return self.row // 2
+
+    @property
+    def halfcols(self) -> int:
+        """Output columns per row: OPR outputs of each of C channels."""
+        return self.opr * self.nr_channels
+
+
+def make_packed_fir_plan(lpf_taps, offsets_hz, sample_rate: float,
+                         decimation: int, gains=None) -> PackedFirPlan:
+    """Build the packed plan for a bank of channels on one wideband input
+    (tap synthesis of the reference, ``multifm/demod.c:205-243``; per-output
+    derotation increment ``-2*pi*offset/fs*D``, ``filter/direct_fir.c:65-76``).
+    """
+    lpf_taps = np.asarray(lpf_taps, dtype=np.float64)
+    offsets_hz = np.atleast_1d(np.asarray(offsets_hz, dtype=np.float64))
+    nr_ch = offsets_hz.shape[0]
+    nr_taps = lpf_taps.shape[0]
+    d = int(decimation)
+    if gains is None:
+        gains = np.ones(nr_ch)
+    gains = np.broadcast_to(np.asarray(gains, dtype=np.float64), (nr_ch,))
+
+    row = math.lcm(2 * d, 128)
+    opr = row // (2 * d)
+    win = row + max(2 * (nr_taps - d), 0)
+    cr_rows = -(-(win - row) // row) if win > row else 0
+
+    cols = 2 * opr * nr_ch
+    wf = np.zeros((win, 2, opr, nr_ch), dtype=np.float32)
+    wq = np.zeros((win, 2, opr, nr_ch), dtype=np.int16)
+    tidx = 2 * np.arange(nr_taps)
+    omega_d = np.empty(nr_ch, dtype=np.float64)
+    rot_incr = np.empty((nr_ch, 2), dtype=np.int32)
+    for c in range(nr_ch):
+        taps, f_offs = design_channel_taps(
+            lpf_taps, offsets_hz[c], sample_rate, gains[c])
+        omega_d[c] = f_offs * d
+        incr = np.exp(1j * f_offs * d)
+        rot_incr[c, 0] = q14.quantize_q14_i32(incr.real)
+        rot_incr[c, 1] = q14.quantize_q14_i32(incr.imag)
+        cr = taps.real.astype(np.float32)
+        ci = taps.imag.astype(np.float32)
+        qr = q14.quantize_q14(taps.real)
+        qi = q14.quantize_q14(taps.imag)
+        for j in range(opr):
+            vre = 2 * d * j + tidx
+            # out_re += cr*xr - ci*xi ; out_im += ci*xr + cr*xi
+            wf[vre, 0, j, c] += cr
+            wf[vre + 1, 0, j, c] -= ci
+            wf[vre, 1, j, c] += ci
+            wf[vre + 1, 1, j, c] += cr
+            wq[vre, 0, j, c] += qr
+            wq[vre + 1, 0, j, c] -= qi
+            wq[vre, 1, j, c] += qi
+            wq[vre + 1, 1, j, c] += qr
+    wf = wf.reshape(win, cols)
+    wq = wq.reshape(win, cols)
+
+    padded = np.zeros(((cr_rows + 1) * row, cols), dtype=np.float32)
+    padded[:win] = wf
+    chunks = tuple(padded[i * row:(i + 1) * row] for i in range(cr_rows + 1))
+    padded_q = np.zeros(((cr_rows + 1) * row, cols), dtype=np.int16)
+    padded_q[:win] = wq
+    chunks_q = tuple(
+        padded_q[i * row:(i + 1) * row] for i in range(cr_rows + 1))
+    chunk_nnz = tuple(
+        row if i == 0 else min(row, -(-(win - i * row) // 128) * 128)
+        for i in range(cr_rows + 1)
+    )
+    return PackedFirPlan(
+        w_chunks=chunks, w_chunks_i16=chunks_q, rot_incr_i32=rot_incr,
+        omega_d=omega_d, row=row, opr=opr, win=win, cr_rows=cr_rows,
+        decimation=d, nr_taps=nr_taps, nr_channels=nr_ch,
+        chunk_nnz=chunk_nnz,
+    )
+
+
+def tap_matrix_i16(plan: PackedFirPlan) -> np.ndarray:
+    """The chunks stacked into one ``[win, 2*halfcols]`` int16 matrix:
+    row ``u`` multiplies stream value ``r*ROW + u`` of output row ``r``
+    (rows past ``win`` are zero in every chunk and are dropped)."""
+    return np.ascontiguousarray(np.concatenate(plan.w_chunks_i16)[:plan.win])
+
+
+def init_packed_carry(plan: PackedFirPlan, prefix=None, *,
+                      device) -> torch.Tensor:
+    """``carry_vals`` interleaved int16 values: zeros, or the first
+    ``carry_len`` samples ([n, 2] int16) of the stream."""
+    if prefix is None:
+        return torch.zeros(plan.carry_vals, dtype=torch.int16, device=device)
+    prefix = np.asarray(prefix, np.int16)
+    if prefix.shape != (plan.carry_len, 2):
+        raise ValueError(f"prefix shape {prefix.shape} != "
+                         f"{(plan.carry_len, 2)}")
+    return torch.from_numpy(prefix.reshape(-1).copy()).to(device)
+
+
+def packed_fir_step(plan: PackedFirPlan, carry_vals: torch.Tensor,
+                    block: torch.Tensor, w_f64: torch.Tensor):
+    """One streaming step of the plain tier.
+
+    carry_vals [carry_vals] int16, block [2N] int16 flat interleaved (N a
+    multiple of ``plan.block_quantum``), ``w_f64`` the tap chunks as one
+    float64 tensor ``[cr+1, ROW, COLS]``. Each chunk product is exact in
+    float64; the sum wraps to int32 like the reference's MAC
+    (``filter/direct_fir.c:366-385``). Returns (new_carry, ar, ai) with
+    ar/ai ``[rows, halfcols]`` float32 — channelized, decimated, not
+    derotated baseband in flat (k, c) order."""
+    row, cr = plan.row, plan.cr_rows
+    if block.numel() % row:
+        raise ValueError(f"block of {block.numel()} values is not a "
+                         f"multiple of the {row}-value row")
+    rows = torch.cat([carry_vals, block]).view(-1, row).to(torch.float64)
+    r_valid = rows.shape[0] - cr
+    p = rows[:r_valid] @ w_f64[0]
+    for i in range(1, cr + 1):
+        nnz = plan.chunk_nnz[i] if plan.chunk_nnz else row
+        p += rows[i:i + r_valid, :nnz] @ w_f64[i, :nnz]
+    p = p.to(torch.int64).to(torch.int32).to(torch.float32)
+    half = plan.halfcols
+    return (next_carry(carry_vals, block, plan.carry_vals),
+            p[:, :half], p[:, half:2 * half])
+
+
+def next_carry(carry_vals: torch.Tensor, block: torch.Tensor,
+               n: int) -> torch.Tensor:
+    """The last ``n`` values of ``carry ++ block``, copying only those."""
+    if n == 0:
+        return carry_vals[:0].clone()
+    if block.numel() >= n:
+        return block[-n:].clone()
+    return torch.cat([carry_vals, block])[-n:]

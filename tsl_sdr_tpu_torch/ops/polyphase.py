@@ -1,0 +1,195 @@
+"""Polyphase rational resampler: numpy plan + the packed-row streaming step.
+
+Port of ``tsl_sdr_tpu/ops/polyphase.py:36-205`` (plan builder, copied as
+numpy because the JAX module imports jax at load) and of
+``resample_step(exact=False)`` in its packed-row form (``:304-371``).
+
+Packed-row form: each channel's stream ``T = carry ++ block`` is cut into
+rows of ``ROW_IN`` samples; row ``m`` yields ``K_ROW`` outputs from its own
+samples against ``w_row [ROW_IN, K_ROW]`` plus the first ``sp`` samples of
+row ``m + 1`` against the trimmed spill matrix ``w_spill [sp, K_ROW]``
+(reference hot loop ``filter/polyphase_fir.c:162-233``). The product runs in
+:func:`tsl_sdr_tpu_torch.ops.row_resampler.row_resample` — kernel K3 on the
+card, one launch for every channel of a ratio group.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tsl_sdr_tpu_torch.ops import q14
+from tsl_sdr_tpu_torch.ops.packed_fir import next_carry
+from tsl_sdr_tpu_torch.ops.row_resampler import row_resample
+
+
+class ResamplerPlan(NamedTuple):
+    """Static plan (same fields as the JAX package's)."""
+
+    taps_sel_i16: np.ndarray  # [K, P] int16 — phase taps gathered per output
+    taps_sel_f32: np.ndarray  # [K, P] float32
+    offsets: np.ndarray       # [K] int32 — window start per output
+    interpolation: int
+    decimation: int
+    block_in: int             # N_in input samples consumed per step
+    block_out: int            # K outputs produced per step
+    carry_len: int
+    phase0: int
+    w_frames: np.ndarray      # [S*D_rep, I_rep] float32 (frame form)
+    w_frames_i16: np.ndarray  # same, int16 Q.14
+    frame_shifts: int         # S
+    i_rep: int
+    d_rep: int
+    k_row: int = 0            # packed-row form: outputs per row (0 = none)
+    row_in: int = 0           # input samples per row
+    spill: int = 0            # window overhang into the next row
+    w_row_i16: np.ndarray | None = None    # [ROW_IN, K_ROW] int16
+    w_spill_i16: np.ndarray | None = None  # [spill_pad, K_ROW] or None
+
+
+def build_phase_filters(fir_coeff, interpolate: int) -> np.ndarray:
+    """[I, P] int16 phase decomposition with the reference's zero padding
+    (``polyphase_fir.c:70-83``)."""
+    coeff = np.asarray(fir_coeff, dtype=np.int16)
+    nr = coeff.shape[0]
+    pc = (nr + interpolate - 1) // interpolate
+    pc = (pc + 3) & ~3
+    phases = np.zeros((interpolate, pc), dtype=np.int16)
+    i = np.arange(nr)
+    phases[i % interpolate, i // interpolate] = coeff
+    return phases
+
+
+def make_resampler_plan(fir_coeff_q14, interpolate: int, decimate: int,
+                        block_out_target: int = 1024, phase0: int = 0,
+                        align_k_row: bool = True,
+                        k_row_max: int = 1024) -> ResamplerPlan:
+    """Build the static plan from int16 Q.14 taps
+    (:func:`tsl_sdr_tpu_torch.ops.q14.quantize_q14` of float coefficients).
+    ``align_k_row=False`` keeps the exact ``block_out_target`` grid (the
+    pipeline needs ``block_in`` equal to its per-block channel span)."""
+    phases = build_phase_filters(fir_coeff_q14, interpolate)
+    p = phases.shape[1]
+
+    g = math.gcd(interpolate, decimate)
+    base = interpolate // g
+    k_row = math.lcm(base, 128)
+    if k_row > k_row_max:
+        k_row = 0
+    if align_k_row and k_row:
+        k_out = k_row * max(1, -(-block_out_target // k_row))
+    else:
+        k_out = base * max(1, -(-block_out_target // base))
+        if k_row and k_out % k_row:
+            k_row = 0
+    n_in = k_out * decimate // interpolate
+
+    k = np.arange(k_out, dtype=np.int64)
+    phase_seq = (phase0 + k * decimate) % interpolate
+    offsets = (phase0 + k * decimate) // interpolate
+    carry_len = int(max(0, offsets[-1] + p - n_in))
+    taps_sel = phases[phase_seq]
+
+    i_rep = interpolate // g
+    d_rep = decimate // g
+    oj = (phase0 + np.arange(i_rep, dtype=np.int64) * decimate) // interpolate
+    span = int(oj.max()) + p
+    s_shifts = -(-span // d_rep)
+    wf = np.zeros((s_shifts * d_rep, i_rep), dtype=np.float32)
+    wq = np.zeros((s_shifts * d_rep, i_rep), dtype=np.int16)
+    for j in range(i_rep):
+        ph = phases[(phase0 + j * decimate) % interpolate]
+        wf[oj[j]:oj[j] + p, j] = ph.astype(np.float32) / q14.Q14_ONE
+        wq[oj[j]:oj[j] + p, j] = ph
+
+    w_row = None
+    w_spill = None
+    row_in = 0
+    spill = 0
+    if k_row:
+        frames = k_row // i_rep
+        row_in = frames * d_rep
+        win_r = (frames - 1) * d_rep + span
+        spill = max(0, win_r - row_in)
+        if spill > row_in:
+            k_row = 0
+            row_in = 0
+            spill = 0
+    if k_row:
+        spill_pad = min(row_in, -(-spill // 128) * 128) if spill else 0
+        wp = np.zeros((row_in + spill_pad, k_row), dtype=np.int16)
+        for f in range(frames):
+            for j in range(i_rep):
+                ph = phases[(phase0 + j * decimate) % interpolate]
+                u0 = f * d_rep + int(oj[j])
+                wp[u0:u0 + p, f * i_rep + j] = ph
+        w_row = wp[:row_in]
+        w_spill = np.ascontiguousarray(wp[row_in:]) if spill else None
+
+    return ResamplerPlan(
+        taps_sel_i16=taps_sel,
+        taps_sel_f32=taps_sel.astype(np.float32) / q14.Q14_ONE,
+        offsets=offsets.astype(np.int32),
+        interpolation=int(interpolate),
+        decimation=int(decimate),
+        block_in=int(n_in),
+        block_out=int(k_out),
+        carry_len=carry_len,
+        phase0=int(phase0),
+        w_frames=wf,
+        w_frames_i16=wq,
+        frame_shifts=int(s_shifts),
+        i_rep=int(i_rep),
+        d_rep=int(d_rep),
+        k_row=int(k_row),
+        row_in=int(row_in),
+        spill=int(spill),
+        w_row_i16=w_row,
+        w_spill_i16=w_spill,
+    )
+
+
+class RowTaps(NamedTuple):
+    """A packed-row plan's tap matrices on the device."""
+
+    w0: torch.Tensor          # [ROW_IN, K_ROW] int16
+    w1: torch.Tensor | None   # [sp, K_ROW] int16, or None
+
+
+def row_taps(plan: ResamplerPlan, *, device) -> RowTaps:
+    if not plan.k_row:
+        raise NotImplementedError(
+            "only packed-row resampler plans are ported (plan.k_row == 0)")
+    w1 = plan.w_spill_i16
+    return RowTaps(
+        torch.from_numpy(np.ascontiguousarray(plan.w_row_i16)).to(device),
+        None if w1 is None else torch.from_numpy(w1).to(device))
+
+
+def init_resampler_carry(plan: ResamplerPlan, groups: int, *,
+                         device) -> torch.Tensor:
+    """Zero history for ``groups`` channels: ``[G, carry_len]`` int16."""
+    return torch.zeros((groups, plan.carry_len), dtype=torch.int16,
+                       device=device)
+
+
+def resample_step(plan: ResamplerPlan, carry: torch.Tensor,
+                  block: torch.Tensor, taps: RowTaps):
+    """Fast tier, packed-row form, batched over a ratio group.
+
+    carry [G, carry_len] int16, block [G, block_in] int16 -> (new carry,
+    out [G, block_out] float32 in sample units). Each channel equals the
+    JAX ``resample_step(plan, state, block, exact=False)``."""
+    if plan.carry_len != plan.spill:
+        raise ValueError(f"packed-row plans carry exactly the spill "
+                         f"({plan.carry_len} != {plan.spill})")
+    if block.shape[1] != plan.block_in:
+        raise ValueError(f"block of {block.shape[1]} samples per channel, "
+                         f"plan expects {plan.block_in}")
+    out = row_resample(carry, block, taps.w0, taps.w1, row_in=plan.row_in)
+    new_carry = torch.stack([next_carry(carry[g], block[g], plan.carry_len)
+                             for g in range(block.shape[0])])
+    return new_carry, out.reshape(block.shape[0], -1)

@@ -1,0 +1,86 @@
+"""Packed-row rational resampler (kernel K3) behind one function on tensors.
+
+:func:`row_resample` computes, for every channel ``g`` of a ratio group,
+
+    out[g, m, j] = (T[m] @ w0 + T[m+1, :sp] @ w1)[j] / 16384
+
+over the rows of ``T = carry ++ block`` (``ROW_IN`` samples each, zeros past
+the stream's end), with exact int32 accumulation. On a CUDA tensor it
+launches ``csrc/row_resampler.cu`` (which replaces the TPU kernel
+``tsl_sdr_tpu/ops/pallas_resampler.py`` ``_row_kernel_v2``/``_row_call_v2``
+and the XLA product of ``tsl_sdr_tpu/ops/polyphase.py:304-345``); on a CPU
+tensor it runs :func:`row_resample_plain`. See the source note in
+``csrc/row_resampler.cu`` for what bounds the kernel and how its design
+responds.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tsl_sdr_tpu_torch.kernels import build
+
+_Q14_SCALE = 1.0 / 16384.0
+
+
+def row_resample(carry: torch.Tensor, block: torch.Tensor, w0: torch.Tensor,
+                 w1: torch.Tensor | None, *, row_in: int) -> torch.Tensor:
+    """carry [G, n_carry] int16, block [G, n] int16, w0 [row_in, k_row]
+    int16, w1 [sp, k_row] int16 or None -> out [G, n // row_in, k_row]
+    float32."""
+    if block.device.type == "cpu":
+        return row_resample_plain(carry, block, w0, w1, row_in=row_in)
+    if block.device.type != "cuda":
+        raise ValueError(f"row_resample runs on cuda or cpu, not "
+                         f"{block.device}")
+    g, n = block.shape
+    k_row = w0.shape[1]
+    sp = 0 if w1 is None else w1.shape[0]
+    m = n // row_in
+    checks = [(block, (g, n), "block"), (carry, (g, carry.shape[1]), "carry"),
+              (w0, (row_in, k_row), "w0")]
+    if w1 is not None:
+        checks.append((w1, (sp, k_row), "w1"))
+    for t, shape, name in checks:
+        if t.dtype != torch.int16 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected int16{list(shape)}, got "
+                             f"{t.dtype}{list(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != block.device:
+            raise ValueError(f"{name} on {t.device}, block on {block.device}")
+    if m == 0:
+        raise ValueError(f"block of {n} samples holds no {row_in}-sample row")
+    lib = build.load()
+    out = torch.empty((g, m, k_row), dtype=torch.float32, device=block.device)
+    stream = torch.cuda.current_stream(block.device).cuda_stream
+    err = lib.tsl_row_resample(
+        carry.data_ptr(), block.data_ptr(), w0.data_ptr(),
+        w0.data_ptr() if w1 is None else w1.data_ptr(), out.data_ptr(),
+        m, row_in, k_row, sp, carry.shape[1], n, g, stream)
+    build.check(err, "tsl_row_resample")
+    row_resample.launches += 1
+    return out
+
+
+row_resample.launches = 0
+
+
+def row_resample_plain(carry: torch.Tensor, block: torch.Tensor,
+                       w0: torch.Tensor, w1: torch.Tensor | None, *,
+                       row_in: int) -> torch.Tensor:
+    """Plain torch version of :func:`row_resample`: float64 products (exact
+    for int16 x int16 sums of a few thousand terms), wrapped to int32,
+    then the same float32 scale."""
+    g, n = block.shape
+    m = n // row_in
+    total = torch.cat([carry, block], dim=1)[:, :(m + 1) * row_in]
+    pad = (m + 1) * row_in - total.shape[1]
+    if pad > 0:
+        total = torch.nn.functional.pad(total, (0, pad))
+    rows = total.reshape(g, m + 1, row_in).to(torch.float64)
+    acc = rows[:, :m] @ w0.to(torch.float64)
+    if w1 is not None:
+        acc += rows[:, 1:, :w1.shape[0]] @ w1.to(torch.float64)
+    acc = acc.to(torch.int64).to(torch.int32).to(torch.float32)
+    return acc * _Q14_SCALE
