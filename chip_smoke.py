@@ -6,9 +6,11 @@ Run from the root of a checkout on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``tsl_sdr_tpu_torch/csrc`` and drives
-the port's receive pipeline at the 8-channel pager deployment
-(``tsl_sdr_tpu_torch/testing/pager.py``: 1.2288 Msps, decimate by 32, 577
-taps, 6 POCSAG + 2 FLEX channels, 4,177,920-sample blocks):
+the port's main paths: the receive pipeline at the 8-channel pager
+deployment (``tsl_sdr_tpu_torch/testing/pager.py``: 1.2288 Msps, decimate by
+32, 577 taps, 6 POCSAG + 2 FLEX channels, 4,177,920-sample blocks), the
+decoder front end (``decoder-torch``, ``resampler-torch``) at the
+reference's resampler settings, and the pipeline at decimation 50:
 
 1. the card's name and power limit; the kernels' build;
 2. K1 (fused channelizer + FM, ``csrc/chain.cu``) against its plain torch
@@ -24,11 +26,32 @@ taps, 6 POCSAG + 2 FLEX channels, 4,177,920-sample blocks):
    through ``ReceivePipeline.push/flush``; every burst must decode, both
    runs must agree, and both kernels must have launched;
 5. wall time per block, wideband Msps, and each kernel's time beside its
-   plain version's (CUDA events, after warm-up).
+   plain version's (CUDA events, after warm-up);
+6. K4 (frame-form resampler, ``csrc/frame_resampler.cu``) against its plain
+   version, f32 and q14 outputs, exactly equal: ``resample_capture`` at
+   147/160 (5,253 taps) over 60 s of 48 kHz PCM, and the streaming step at
+   the decimation-50 pipeline's 25/16 group shape;
+7. K3's exact (q14) epilogue against its plain version at the 192/125 plan
+   of ``etc/pocsag_38400_from_25k.json`` (6,303 taps): exactly equal;
+8. the exact DC blocker (``csrc/dc_blocker.cu``) against its plain version
+   over 1.5 M samples in blocks, state carried: exactly equal;
+9. ``decoder-torch`` on 60 s of channel audio with 6 bursts each: FLEX
+   ``-I 16 -D 25 -F etc/flex_16_25.json``, POCSAG ``-I 192 -D 125 -F
+   etc/pocsag_38400_from_25k.json -b`` (exact DC), and POCSAG from 24,576
+   Hz ``-I 25 -D 16`` (frame form); every burst must decode;
+10. ``resampler-torch -I 147 -D 160``, exact and ``--fast``: the output
+   file must equal, byte for byte, the same run with ``--device cpu``;
+11. the pipeline at decimation 50 (six 24,576 Hz POCSAG channels, one 25/16
+   group): every burst must decode;
+12. the new kernels' times beside their plain versions' at the shapes of
+   those paths.
 
-jax is made unimportable first, so the run also proves that the port needs
-none. Any failed check raises and the exit code is non-zero. The last two lines
-are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
+Each path of phases 4, 9, 10 and 11 runs with the kernels' launch counts
+set to 0 just before it and read just after; a kernel of the path that
+never launched fails the run. jax is made unimportable first, so the run
+also proves that the port needs none. Any failed check raises and the exit
+code is non-zero. The last two lines are the kernels' JSON summary and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -72,6 +95,53 @@ def pcm_diff(a, b):
 
     d = np.abs(a.astype(np.int32) - b.astype(np.int32))
     return np.minimum(d, 32768 - d)
+
+
+def max_err(got, ref) -> float:
+    """max |got - ref| over two tensors of one shape, on the host."""
+    return float((got.cpu().double() - ref.cpu().double()).abs().max())
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from tsl_sdr_tpu_torch.ops import chain as k1
+    from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
+    from tsl_sdr_tpu_torch.ops import frame_resampler as k4
+    from tsl_sdr_tpu_torch.ops import row_resampler as k3
+
+    return {"chain_fm": k1.chain_fm.launches,
+            "row_resample": k3.row_resample.launches,
+            "row_resample_q14": k3.row_resample.launches_q14,
+            "frame_resample": k4.frame_resample.launches,
+            "dc_block_exact": dcb.dc_block_exact.launches}
+
+
+def zero_launch_counts() -> None:
+    from tsl_sdr_tpu_torch.ops import chain as k1
+    from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
+    from tsl_sdr_tpu_torch.ops import frame_resampler as k4
+    from tsl_sdr_tpu_torch.ops import row_resampler as k3
+
+    k1.chain_fm.launches = 0
+    k3.row_resample.launches = 0
+    k3.row_resample.launches_q14 = 0
+    k4.frame_resample.launches = 0
+    dcb.dc_block_exact.launches = 0
+
+
+def on_path(name: str, kernels, fn, totals: dict):
+    """Run one main path with the launch counts set to 0 just before it;
+    fail if one of ``kernels`` never launched in it; add its counts to
+    ``totals``. Returns what ``fn`` returns."""
+    zero_launch_counts()
+    res = fn()
+    counts = launch_counts()
+    log(f"launches on {name}: {counts}")
+    missing = [k for k in kernels if counts[k] == 0]
+    require(not missing, f"{name}: {missing} never launched: {counts}")
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    return res
 
 
 def time_ms(fn, reps: int) -> float:
@@ -261,6 +331,332 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def check_frame_resampler(device):
+    """Phase 6: K4 vs its plain version, f32 and q14 outputs: the 147/160
+    capture entry over 60 s of 48 kHz PCM, and the streaming step at the
+    decimation-50 pipeline's 25/16 group shape."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
+    from tsl_sdr_tpu_torch.ops import frame_resampler as k4
+    from tsl_sdr_tpu_torch.ops import polyphase, q14
+    from tsl_sdr_tpu_torch.testing import channel_audio, pager
+
+    plan = polyphase.make_resampler_plan(
+        q14.quantize_q14(channel_audio.resampler_taps(147, 160)), 147, 160)
+    taps = k4.frame_taps(plan, device=device)
+    rng = np.random.default_rng(13)
+    pcm = torch.from_numpy(rng.integers(-32768, 32767, size=2_880_000)
+                           .astype(np.int16)).to(device)
+    cap = {"plan": plan, "taps": taps, "pcm": pcm}
+    worst = 0.0
+    for out in ("f32", "q14"):
+        got = k4.resample_capture(plan, pcm, taps, out=out)
+        ref = k4.frame_resample_plain(pcm.new_zeros((1, 0)), pcm[None], taps,
+                                      frames=pcm.numel() // plan.d_rep,
+                                      out=out)[0]
+        log(f"K4 vs plain, resample_capture 147/160 ({plan.frame_shifts} "
+            f"frames of {plan.d_rep} per window, {taps.cols.shape[1]} taps a "
+            f"column) over {pcm.numel()} samples -> {got.numel()} {out}: "
+            f"max|diff|={max_err(got, ref)}")
+        require(torch.equal(got, ref), f"K4 capture ({out}) differs")
+        worst = max(worst, max_err(got, ref))
+
+    pipe = ReceivePipeline(pager.dec50_lpf_taps(), pager.CENTER_HZ, pager.FS,
+                           pager.DEC50_DECIMATION,
+                           pager.dec50_channel_specs(ChannelSpec),
+                           device=device)
+    prog = pipe._program(pipe.block_size)
+    (gid, idxs), = pipe._rs_groups.items()
+    splan, staps = prog.plans[gid], prog.rs_taps[gid]
+    require(gid == (25, 16) and splan.k_row == 0,
+            f"decimation 50 should give one frame-form 25/16 group: {gid}")
+    g = len(idxs)
+    carry = torch.from_numpy(rng.integers(
+        -32768, 32767, size=(g, splan.carry_len)).astype(np.int16)).to(device)
+    block = torch.from_numpy(rng.integers(
+        -32768, 32767, size=(g, splan.block_in)).astype(np.int16)).to(device)
+    frames = splan.block_out // splan.i_rep
+    for out in ("f32", "q14"):
+        got = k4.frame_resample(carry, block, staps, frames=frames, out=out)
+        ref = k4.frame_resample_plain(carry, block, staps, frames=frames,
+                                      out=out)
+        log(f"K4 vs plain, pipeline step 25/16: carry {list(carry.shape)} "
+            f"block {list(block.shape)} -> {list(got.shape)} {out}: "
+            f"max|diff|={max_err(got, ref)}")
+        require(torch.equal(got, ref), f"K4 step ({out}) differs")
+        worst = max(worst, max_err(got, ref))
+    step = {"carry": carry, "block": block, "taps": staps, "frames": frames}
+    return cap, step, worst
+
+
+def check_row_q14(device):
+    """Phase 7: K3's q14 epilogue vs plain at the 192/125 plan of
+    etc/pocsag_38400_from_25k.json: the decoder's step shape and a long
+    block."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import polyphase, q14
+    from tsl_sdr_tpu_torch.ops import row_resampler as k3
+
+    doc = json.loads((HERE / "etc" / "pocsag_38400_from_25k.json").read_text())
+    coeffs = doc["rationalResampler"]["lpfCoeffs"]
+    rng = np.random.default_rng(14)
+    shapes = {}
+    worst = 0.0
+    for name, target, align in (("decoder step", 1024, True),
+                                ("85-row block", 85 * 384, False)):
+        plan = polyphase.make_resampler_plan(
+            q14.quantize_q14(coeffs), 192, 125, block_out_target=target,
+            align_k_row=align)
+        taps = polyphase.row_taps(plan, device=device)
+        carry = torch.from_numpy(rng.integers(
+            -32768, 32767, size=(1, plan.carry_len)).astype(np.int16)).to(
+                device)
+        block = torch.from_numpy(rng.integers(
+            -32768, 32767, size=(1, plan.block_in)).astype(np.int16)).to(
+                device)
+        got = k3.row_resample(carry, block, taps.w0, taps.w1,
+                              row_in=plan.row_in, out="q14")
+        ref = k3.row_resample_plain(carry, block, taps.w0, taps.w1,
+                                    row_in=plan.row_in, out="q14")
+        log(f"K3 q14 vs plain, 192/125 ({len(coeffs)} taps) {name}: block "
+            f"{list(block.shape)} w0 {list(taps.w0.shape)} -> "
+            f"{list(got.shape)}: max|diff|={max_err(got, ref)}")
+        require(torch.equal(got, ref), f"K3 q14 {name} differs")
+        worst = max(worst, max_err(got, ref))
+        shapes[name] = (carry, block, taps, plan.row_in)
+    return shapes, worst
+
+
+def check_dc_exact(device):
+    """Phase 8: the exact DC blocker vs plain over 1.5 M samples in
+    blocks, state carried."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
+
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.integers(-32768, 32767, size=(1, 1_500_000))
+                         .astype(np.int16))
+    p = dcb.make_pole_coeff(0.9999)
+    st_k = torch.zeros((1, 3), dtype=torch.int32, device=device)
+    st_p = torch.zeros((1, 3), dtype=torch.int32)
+    bounds = [0, 1152, 250_007, 800_000, 1_500_000]
+    worst = 0.0
+    t0 = time.perf_counter()
+    for lo, hi in zip(bounds, bounds[1:]):
+        part = x[:, lo:hi].contiguous()
+        got = dcb.dc_block_exact(st_k, part.to(device), p)
+        ref = dcb.dc_block_exact_plain(st_p, part, p)
+        require(torch.equal(got.cpu(), ref) and torch.equal(st_k.cpu(), st_p),
+                f"exact DC blocker differs in samples [{lo}, {hi})")
+        worst = max(worst, max_err(got, ref))
+    log(f"exact DC blocker vs plain: {x.shape[1]} samples in "
+        f"{len(bounds) - 1} blocks, state carried: max|diff|={worst} "
+        f"({time.perf_counter() - t0:.2f} s with the plain loop)")
+    whole = x.to(device)
+
+    def kernel_whole():
+        st = torch.zeros((1, 3), dtype=torch.int32, device=device)
+        return dcb.dc_block_exact(st, whole, p)
+
+    whole_ms = time_ms(kernel_whole, 3)
+    log(f"exact DC blocker kernel over {x.shape[1]} samples in one launch: "
+        f"{whole_ms:.3f} ms")
+    return p, worst
+
+
+def decoder_runs(tmp: Path, device):
+    """Phase 9: decoder-torch at the reference's resampler settings on 60 s
+    of channel audio each; every burst must decode."""
+    from tsl_sdr_tpu_torch.cli import decoder
+    from tsl_sdr_tpu_torch.testing import channel_audio
+
+    f25_16 = tmp / "pocsag_25_16.json"
+    channel_audio.write_filter(f25_16, 25, 16)
+    runs = [
+        ("flex 16/25", "flex", 25_000, 0,
+         ["-m", "flex", "-I", "16", "-D", "25", "-S", "25000",
+          "-F", str(HERE / "etc" / "flex_16_25.json")]),
+        ("pocsag 192/125 -b", "pocsag", 25_000, 900,
+         ["-m", "pocsag", "-I", "192", "-D", "125", "-S", "25000",
+          "-F", str(HERE / "etc" / "pocsag_38400_from_25k.json"), "-b"]),
+        ("pocsag 25/16", "pocsag", 24_576, 0,
+         ["-m", "pocsag", "-I", "25", "-D", "16", "-S", "24576",
+          "-F", str(f25_16)]),
+    ]
+    walls = {}
+    for k, (name, proto, rate, dc, argv) in enumerate(runs):
+        pcm, expected = channel_audio.capture(proto, rate, 60.0, 6,
+                                              seed=20 + k, dc=dc)
+        src = tmp / f"dec{k}.pcm"
+        pcm.tofile(src)
+        out = tmp / f"dec{k}.json"
+        t0 = time.perf_counter()
+        rc = decoder.main([*argv, "-o", str(out), "-c", "--device", device,
+                           str(src)])
+        walls[name] = time.perf_counter() - t0
+        require(rc == 0, f"decoder-torch {name} exited {rc}")
+        got = [(m["capCode"], m["message"].rstrip("\0"))
+               for m in map(json.loads, out.read_text().splitlines())]
+        log(f"decoder-torch {name}: {len(got)} of {len(expected)} bursts "
+            f"from {pcm.size} samples at {rate} Hz in {walls[name]:.3f} s")
+        require(sorted(got) == sorted(expected),
+                f"decoder-torch {name} decoded {got}, expected {expected}")
+    return walls
+
+
+def resampler_runs(tmp: Path, device):
+    """Phase 10: resampler-torch -I 147 -D 160, exact and --fast, on the
+    card and with --device cpu: the output files must be byte-equal."""
+    import numpy as np
+
+    from tsl_sdr_tpu_torch.cli import resampler
+    from tsl_sdr_tpu_torch.testing import channel_audio
+
+    filt = tmp / "r147_160.json"
+    channel_audio.write_filter(filt, 147, 160)
+    rng = np.random.default_rng(16)
+    t = np.arange(960_000) / 48_000
+    pcm = (8000 * np.sin(2 * np.pi * 1000 * t)
+           + rng.normal(scale=2000, size=t.size)).astype(np.int16)
+    src = tmp / "r48k.pcm"
+    pcm.tofile(src)
+    walls = {}
+    for tier in ("exact", "fast"):
+        outs = {}
+        for dev in (device, "cpu"):
+            dst = tmp / f"r_{tier}_{dev}.pcm"
+            argv = ["-I", "147", "-D", "160", "-S", "48000", "-F", str(filt),
+                    "--device", dev, str(src), str(dst)]
+            if tier == "fast":
+                argv.insert(0, "--fast")
+            t0 = time.perf_counter()
+            require(resampler.main(argv) == 0,
+                    f"resampler-torch {tier} on {dev} failed")
+            walls[f"{tier} {dev}"] = time.perf_counter() - t0
+            outs[dev] = dst.read_bytes()
+        log(f"resampler-torch 147/160 {tier}: {pcm.size} samples -> "
+            f"{len(outs[device]) // 2}; {device} "
+            f"{walls[f'{tier} {device}']:.3f} s, cpu "
+            f"{walls[f'{tier} cpu']:.3f} s; byte-equal "
+            f"{outs[device] == outs['cpu']}")
+        require(outs[device] == outs["cpu"],
+                f"resampler-torch {tier}: {device} output != cpu output")
+    return walls
+
+
+def dec50_run(device):
+    """Phase 11: the pipeline at decimation 50 (six POCSAG channels at
+    24,576 Hz, one 25/16 frame-form group); every burst must decode."""
+    from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
+    from tsl_sdr_tpu_torch.testing import pager
+
+    specs = pager.dec50_channel_specs(ChannelSpec)
+    pipe = ReceivePipeline(pager.dec50_lpf_taps(), pager.CENTER_HZ, pager.FS,
+                           pager.DEC50_DECIMATION, specs, device=device)
+    starts = [200_000 + k * 1_300_000 for k in range(len(specs))]
+    iq, expected = pager.capture(2 * pipe.block_size + TAIL_SAMPLES, starts,
+                                 seed=8)
+    pipe.warm_device()
+    t0 = time.perf_counter()
+    res = pipe.process_capture(iq)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    got = sorted(message_keys(res, specs))
+    want = sorted((s.center_freq_hz, cap, text)
+                  for s, exp in zip(specs, expected) for cap, text in exp)
+    got = [(f, c, t.rstrip("\0")) for f, c, t in got]
+    log(f"pipeline at decimation 50: {len(got)} of {len(want)} bursts, "
+        f"{iq.shape[0]} samples in {pipe.stream_stats['blocks']} blocks, "
+        f"{wall:.3f} s")
+    require(got == want, f"decimation 50 decoded {got}, expected {want}")
+    return wall
+
+
+def front_end(device, totals: dict) -> dict:
+    """Phases 6-12: the decoder front end's kernels and paths."""
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
+    from tsl_sdr_tpu_torch.ops import frame_resampler as k4
+    from tsl_sdr_tpu_torch.ops import row_resampler as k3
+
+    cap, step, k4_err = check_frame_resampler(device)
+    q14_shapes, q14_err = check_row_q14(device)
+    pole, dc_err = check_dc_exact(device)
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        runs["decoder_s"] = on_path(
+            "decoder-torch", ("row_resample_q14", "frame_resample",
+                              "dc_block_exact"),
+            lambda: decoder_runs(tmp, device), totals)
+        runs["resampler_s"] = on_path(
+            "resampler-torch", ("frame_resample",),
+            lambda: resampler_runs(tmp, device), totals)
+    runs["dec50_s"] = on_path("the decimation-50 pipeline",
+                              ("chain_fm", "frame_resample"),
+                              lambda: dec50_run(device), totals)
+
+    # phase 12: times at the paths' shapes (CUDA events, after warm-up)
+    args = (step["carry"], step["block"], step["taps"])
+    fr_ms, fr_plain_ms = in_turns(
+        lambda: k4.frame_resample_plain(*args, frames=step["frames"]),
+        lambda: k4.frame_resample(*args, frames=step["frames"]), 10, 50)
+    pcm, plan, taps = cap["pcm"], cap["plan"], cap["taps"]
+    cap_ms, cap_plain_ms = in_turns(
+        lambda: k4.frame_resample_plain(pcm.new_zeros((1, 0)), pcm[None],
+                                        taps, frames=pcm.numel()
+                                        // plan.d_rep),
+        lambda: k4.resample_capture(plan, pcm, taps), 3, 20)
+    log(f"K4 resample_capture 147/160 over {pcm.numel()} samples: kernel "
+        f"{cap_ms:.3f} ms, plain {cap_plain_ms:.3f} ms")
+    rc, rb, rt, row_in = q14_shapes["decoder step"]
+    q_ms, q_plain_ms = in_turns(
+        lambda: k3.row_resample_plain(rc, rb, rt.w0, rt.w1, row_in=row_in,
+                                      out="q14"),
+        lambda: k3.row_resample(rc, rb, rt.w0, rt.w1, row_in=row_in,
+                                out="q14"), 50, 200)
+    rc, rb, rt, row_in = q14_shapes["85-row block"]
+    q85_ms, q85_plain_ms = in_turns(
+        lambda: k3.row_resample_plain(rc, rb, rt.w0, rt.w1, row_in=row_in,
+                                      out="q14"),
+        lambda: k3.row_resample(rc, rb, rt.w0, rt.w1, row_in=row_in,
+                                out="q14"), 10, 50)
+    log(f"K3 q14 192/125 85-row block: kernel {q85_ms:.3f} ms, plain "
+        f"{q85_plain_ms:.3f} ms")
+    x = torch.randint(-32768, 32767, (1, 1152), dtype=torch.int16)
+    xd = x.to(device)
+    st_k = torch.zeros((1, 3), dtype=torch.int32, device=device)
+    st_p = torch.zeros((1, 3), dtype=torch.int32)
+    dc_ms, dc_plain_ms = in_turns(
+        lambda: dcb.dc_block_exact_plain(st_p, x, pole),
+        lambda: dcb.dc_block_exact(st_k, xd, pole), 20, 200)
+    return {
+        "runs": runs,
+        "kernels": [
+            {"name": "row_resample_q14", "route": "cuda",
+             "source": "tsl_sdr_tpu_torch/csrc/row_resampler.cu",
+             "replaces": "tsl_sdr_tpu/ops/polyphase.py:318",
+             "max_abs_err": q14_err, "ms": q_ms, "plain_ms": q_plain_ms},
+            {"name": "frame_resample", "route": "cuda",
+             "source": "tsl_sdr_tpu_torch/csrc/frame_resampler.cu",
+             "replaces": "tsl_sdr_tpu/ops/pallas_resampler.py:28",
+             "max_abs_err": k4_err, "ms": fr_ms, "plain_ms": fr_plain_ms},
+            {"name": "dc_block_exact", "route": "cuda",
+             "source": "tsl_sdr_tpu_torch/csrc/dc_blocker.cu",
+             "replaces": "tsl_sdr_tpu/ops/dc_blocker.py:49",
+             "max_abs_err": dc_err, "ms": dc_ms, "plain_ms": dc_plain_ms},
+        ],
+    }
+
+
 def smoke(device: str = "cuda") -> dict:
     """Phases 2-5 on ``device``; returns the kernels' summary."""
     import torch
@@ -285,15 +681,11 @@ def smoke(device: str = "cuda") -> dict:
     k1_err = check_chain(pipe, iq, device)
     k3_args, k3_err = check_resampler(pipe, device)
 
-    k1.chain_fm.launches = 0
-    k3.row_resample.launches = 0
+    totals = {}
     with tempfile.TemporaryDirectory() as tmp:
-        run = run_main_path(pager, iq, expected, device, Path(tmp))
-    launches = {"chain_fm": k1.chain_fm.launches,
-                "row_resample": k3.row_resample.launches}
-    log(f"launches in the main-path run: {launches}")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel of the main path never launched: {launches}")
+        run = on_path("the pager pipeline", ("chain_fm", "row_resample"),
+                      lambda: run_main_path(pager, iq, expected, device,
+                                            Path(tmp)), totals)
 
     # phase 5: kernel times at the main path's shapes
     taps = pipe.chain.taps
@@ -318,19 +710,24 @@ def smoke(device: str = "cuda") -> dict:
     st = pipe._stream["st"]
     run["step_ms"] = time_ms(lambda: prog.dev_step(st, block), 10)
     pipe.stream_reset()
+    del iq, vals, carry, block
+
+    front = front_end(device, totals)
     return {
         "run": run,
+        "front": front["runs"],
         "kernels": [
             {"name": "chain_fm", "route": "cuda",
              "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
              "replaces": "tsl_sdr_tpu/ops/pallas_chain.py:279",
-             "launches": launches["chain_fm"], "max_abs_err": k1_err,
+             "launches": totals["chain_fm"], "max_abs_err": k1_err,
              "ms": k1_ms, "plain_ms": k1_plain_ms},
             {"name": "row_resample", "route": "cuda",
              "source": "tsl_sdr_tpu_torch/csrc/row_resampler.cu",
              "replaces": "tsl_sdr_tpu/ops/pallas_resampler.py:119",
-             "launches": launches["row_resample"], "max_abs_err": k3_err,
+             "launches": totals["row_resample"], "max_abs_err": k3_err,
              "ms": k3_ms, "plain_ms": k3_plain_ms},
+            *[dict(k, launches=totals[k["name"]]) for k in front["kernels"]],
         ],
     }
 
@@ -380,9 +777,15 @@ def main() -> int:
     log(f"{card} | host-blocked seconds by phase: {json.dumps(run['timing'])}")
     log(f"{card} | device step (all stages of one block, back to back): "
         f"{run['step_ms']:.3f} ms per block")
+    front = summary["front"]
+    log(f"{card} | decoder-torch wall s (60 s of audio each): "
+        f"{json.dumps(front['decoder_s'])}")
+    log(f"{card} | resampler-torch 147/160 wall s (20 s of 48 kHz): "
+        f"{json.dumps(front['resampler_s'])}")
+    log(f"{card} | pipeline at decimation 50: {front['dec50_s']:.3f} s")
     for k in summary["kernels"]:
         log(f"{card} | {k['name']}: kernel {k['ms']:.3f} ms, plain "
-            f"{k['plain_ms']:.3f} ms per block")
+            f"{k['plain_ms']:.3f} ms per call at its main path's shape")
     print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,10 @@ card's machine can run it without the JAX package's test setup:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: K1 <= 1 PCM LSB and >= 99.9 % exact (its float ops are written
-to match the plain version one to one, so it is exact in practice); K3
-EXACTLY equal (exact int32 sums, one float32 conversion, a power-of-two
-scale).
+to match the plain version one to one, so it is exact in practice); K3 and
+K4 EXACTLY equal in both output modes (wrapping int32 sums, then one float32
+conversion and a power-of-two scale, or the integer Q.28 -> Q.14 rounding);
+the exact DC blocker EXACTLY equal (the same integer recurrence).
 """
 
 import numpy as np
@@ -19,6 +20,8 @@ import torch
 from tsl_sdr_tpu.utils.filter_design import design_rational_resampler_filter
 from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
 from tsl_sdr_tpu_torch.ops import chain as k1
+from tsl_sdr_tpu_torch.ops import dc_blocker
+from tsl_sdr_tpu_torch.ops import frame_resampler as k4
 from tsl_sdr_tpu_torch.ops import polyphase, q14
 from tsl_sdr_tpu_torch.ops import row_resampler as k3
 from tsl_sdr_tpu_torch.testing import pager
@@ -85,6 +88,93 @@ def test_row_resample_kernel_matches_plain(cuda, g, m):
     assert k3.row_resample.launches == before + 1
     assert got.shape == (g, m, plan.k_row)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("i_,d_,g,frames,short", [
+    (147, 160, 3, 133, 0),    # 3 channels, a ragged last 64-frame tile
+    (25, 16, 2, 5184, 0),     # the decimation-50 pipeline's POCSAG group
+    (64, 1, 2, 70, 5),        # D_rep = 1, 36 spill frames, a short block
+    (32, 5, 1, 3, 2),         # fewer frames than one thread's four
+])
+@pytest.mark.parametrize("out", ["f32", "q14"])
+def test_frame_resample_kernel_matches_plain(cuda, i_, d_, g, frames, short,
+                                             out):
+    coeffs = q14.quantize_q14(design_rational_resampler_filter(i_, d_, 0.4))
+    plan = polyphase.make_resampler_plan(coeffs, i_, d_)
+    assert plan.k_row == 0
+    taps = k4.frame_taps(plan, device=cuda)
+    rng = np.random.default_rng(frames)
+    carry = torch.from_numpy(rng.integers(
+        -32768, 32767, size=(g, plan.carry_len)).astype(np.int16)).to(cuda)
+    block = torch.from_numpy(rng.integers(
+        -32768, 32767, size=(g, frames * plan.d_rep - short)).astype(
+            np.int16)).to(cuda)
+    before = k4.frame_resample.launches
+    got = k4.frame_resample(carry, block, taps, frames=frames, out=out)
+    ref = k4.frame_resample_plain(carry, block, taps, frames=frames, out=out)
+    torch.cuda.synchronize()
+    assert k4.frame_resample.launches == before + 1
+    assert got.shape == (g, frames * plan.i_rep) and got.dtype == ref.dtype
+    assert torch.equal(got, ref)
+
+
+def test_resample_capture_kernel_matches_plain(cuda):
+    """The whole-capture entry (no carry) at 147/160, 10 s of 48 kHz."""
+    coeffs = q14.quantize_q14(design_rational_resampler_filter(147, 160,
+                                                               0.4))
+    plan = polyphase.make_resampler_plan(coeffs, 147, 160)
+    taps = k4.frame_taps(plan, device=cuda)
+    pcm = torch.from_numpy(np.random.default_rng(1).integers(
+        -20000, 20000, size=480_000).astype(np.int16)).to(cuda)
+    for out in ("f32", "q14"):
+        got = k4.resample_capture(plan, pcm, taps, out=out)
+        ref = k4.frame_resample_plain(pcm.new_zeros((1, 0)), pcm[None], taps,
+                                      frames=3000, out=out)[0]
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("g,m", [(1, 3), (2, 85)])
+def test_row_resample_q14_matches_plain(cuda, g, m):
+    """K3's exact epilogue at the 192/125 plan of
+    etc/pocsag_38400_from_25k.json (6,303 taps)."""
+    coeffs = q14.quantize_q14(design_rational_resampler_filter(192, 125, 0.4))
+    plan = polyphase.make_resampler_plan(coeffs, 192, 125,
+                                         block_out_target=m * 384,
+                                         align_k_row=False)
+    taps = polyphase.row_taps(plan, device=cuda)
+    rng = np.random.default_rng(m)
+    carry = torch.from_numpy(rng.integers(
+        -32768, 32767, size=(g, plan.carry_len)).astype(np.int16)).to(cuda)
+    block = torch.from_numpy(rng.integers(
+        -32768, 32767, size=(g, plan.block_in)).astype(np.int16)).to(cuda)
+    before = k3.row_resample.launches_q14
+    got = k3.row_resample(carry, block, taps.w0, taps.w1, row_in=plan.row_in,
+                          out="q14")
+    ref = k3.row_resample_plain(carry, block, taps.w0, taps.w1,
+                                row_in=plan.row_in, out="q14")
+    torch.cuda.synchronize()
+    assert k3.row_resample.launches_q14 == before + 1
+    assert got.dtype == torch.int16 and torch.equal(got, ref)
+
+
+def test_dc_block_exact_kernel_matches_plain(cuda):
+    """Three streams, state carried across uneven blocks."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.integers(-32768, 32767, size=(3, 20_000)).astype(
+        np.int16))
+    p = dc_blocker.make_pole_coeff(0.9999)
+    st_k = torch.zeros((3, 3), dtype=torch.int32, device=cuda)
+    st_p = torch.zeros((3, 3), dtype=torch.int32)
+    before = dc_blocker.dc_block_exact.launches
+    for lo, hi in [(0, 1), (1, 4097), (4097, 20_000)]:
+        got = dc_blocker.dc_block_exact(st_k, x[:, lo:hi].contiguous().to(cuda),
+                                        p)
+        ref = dc_blocker.dc_block_exact_plain(st_p, x[:, lo:hi].contiguous(),
+                                              p)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref)
+        assert torch.equal(st_k.cpu(), st_p)
+    assert dc_blocker.dc_block_exact.launches == before + 3
 
 
 def test_wrappers_raise_on_bad_input(cuda):

@@ -2,9 +2,11 @@
 
 A subprocess makes ``jax`` unimportable before anything loads, then imports
 the port, its pipeline and its CLI, builds a 4-channel CPU pipeline and
-decodes one POCSAG burst. The JAX package's jax-free modules (decoders,
-generators, utils) load; anything that would import jax fails, and the
-decoders fall back to their numpy tiers.
+decodes one POCSAG burst. A second one runs ``decoder-torch`` (a 25/16
+frame-form POCSAG input, exact tier, ``-b``) and ``resampler-torch``. The
+JAX package's jax-free modules (decoders, generators, utils) load; anything
+that would import jax fails, and the decoders fall back to their numpy
+tiers.
 """
 
 import os
@@ -23,6 +25,8 @@ import numpy as np
 import tsl_sdr_tpu_torch
 import tsl_sdr_tpu_torch.cli.pipeline
 import tsl_sdr_tpu_torch.utils.convert
+import tsl_sdr_tpu_torch.models.resampler
+import tsl_sdr_tpu_torch.runtime.stream
 from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
 from tsl_sdr_tpu_torch.testing import pager
 from tsl_sdr_tpu.testing import pocsag_gen
@@ -49,12 +53,57 @@ print("NO-JAX OK")
 """
 
 
-def test_port_runs_without_jax():
+_CLI_SCRIPT = r"""
+import json, sys, tempfile
+from pathlib import Path
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import numpy as np
+from tsl_sdr_tpu.testing import pocsag_gen
+from tsl_sdr_tpu.utils.filter_design import resampler_filter_json
+from tsl_sdr_tpu_torch.cli import decoder, resampler
+
+bb = pocsag_gen.generate(
+    [pocsag_gen.PocsagBurst(capcode=2025, function=1, kind="alpha",
+                            content="FRAME FORM")],
+    baud=1200, amplitude=4096, tail_bits=256)
+idx = np.arange(len(bb) * 16 // 25) * 25 // 16
+pcm = np.concatenate([np.zeros(500, np.int16), bb[idx] + np.int16(300)])
+tmp = Path(tempfile.mkdtemp())
+pcm.tofile(tmp / "in.pcm")
+(tmp / "f.json").write_text(resampler_filter_json(25, 16, 0.4))
+assert decoder.main(["-m", "pocsag", "-I", "25", "-D", "16", "-b",
+                     "-F", str(tmp / "f.json"), "-o", str(tmp / "o.json"),
+                     "-c", "--device", "cpu", str(tmp / "in.pcm")]) == 0
+msgs = [json.loads(x) for x in (tmp / "o.json").read_text().splitlines()]
+assert [(m["capCode"], m["message"].rstrip("\0")) for m in msgs] == [
+    (2025, "FRAME FORM")]
+assert resampler.main(["-I", "25", "-D", "16", "-F", str(tmp / "f.json"),
+                       "--device", "cpu", str(tmp / "in.pcm"),
+                       str(tmp / "out.pcm")]) == 0
+out = np.fromfile(tmp / "out.pcm", np.int16)
+assert abs(out.size - pcm.size * 25 / 16) < 4096, out.size
+loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
+          and sys.modules[m] is not None]
+assert not loaded, loaded
+print("NO-JAX CLI OK")
+"""
+
+
+def _run_no_jax(script: str, token: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    res = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT, env=env,
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
-    assert "NO-JAX OK" in res.stdout
+    assert token in res.stdout
+
+
+def test_port_runs_without_jax():
+    _run_no_jax(_SCRIPT, "NO-JAX OK")
+
+
+def test_decoder_and_resampler_clis_run_without_jax():
+    _run_no_jax(_CLI_SCRIPT, "NO-JAX CLI OK")
 
 
 def test_no_port_file_imports_jax():

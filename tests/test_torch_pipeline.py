@@ -246,3 +246,40 @@ def test_push_refuses_wide_input_on_8bit_wire(capture):
     with pytest.raises(ValueError, match="8-bit wire bytes"):
         pipe.push(capture["iq"][:10_000])
     assert pipe.push(np.full(20_000, 127, np.uint8)) == [[], [], [], []]
+
+
+def test_pipeline_decimation_50_frame_form_group():
+    """fs 1,228,800 / 50 gives 24,576 Hz channels and a POCSAG ratio of
+    25/16, whose resampler plan has no packed-row form (lcm(25, 128) >
+    1024): the group runs the frame-form resampler (K4). Same messages as
+    the JAX pipeline, which runs its transposed-residue tier there."""
+    fs, decim = 1_228_800, 50
+    bursts = [(200_000, 777001, "DECIM 50 A"), (-300_000, 777002,
+                                                "DECIM 50 B")]
+    iq = np.zeros((2_000_000, 2))
+    for k, (off, cap, text) in enumerate(bursts):
+        bb = pocsag_gen.generate(
+            [pocsag_gen.PocsagBurst(capcode=cap, function=3, kind="alpha",
+                                    content=text)],
+            baud=1200, amplitude=4096, tail_bits=256)
+        sig = fm_mod(bb, 38_400, off, fs, amp=9000)
+        lo = 100_000 + 300_000 * k
+        iq[lo:lo + len(sig)] += sig
+    rng = np.random.default_rng(3)
+    iq = (iq + rng.normal(scale=100, size=iq.shape)).astype(np.int16)
+    lpf = firdes_low_pass(1.0, fs, 10_000, 6_000)
+    res = {}
+    for mod, kw in ((jpipe, {"exact": False}), (tpipe, {"device": "cpu"})):
+        specs = [mod.ChannelSpec(CENTER + off, "pocsag", dc_block=k == 1)
+                 for k, (off, _, _) in enumerate(bursts)]
+        pipe = mod.ReceivePipeline(lpf, CENTER, fs, decim, specs,
+                                   block_size=400_000, **kw)
+        res[mod] = [[(m.capcode, m.data) for m in msgs]
+                    for msgs in pipe.process_capture(iq)]
+        if mod is tpipe:
+            plan = pipe._program(pipe.block_size).plans[(25, 16)]
+            assert plan.k_row == 0 and pipe._rs_groups == {(25, 16): [0, 1]}
+    assert res[tpipe] == res[jpipe]
+    assert [[(cap, data.rstrip(b"\0")) for cap, data in msgs]
+            for msgs in res[tpipe]] == [[(777001, b"DECIM 50 A")],
+                                        [(777002, b"DECIM 50 B")]]

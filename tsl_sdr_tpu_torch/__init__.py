@@ -6,14 +6,18 @@ counterpart's path (``ops/packed_fir.py`` here ports
 
 * ``ops``     — the receive chain's stages on tensors: the fused
                 channelizer+FM (``ops.chain``, CUDA kernel K1), the packed-row
-                resampler (``ops.row_resampler``, CUDA kernel K3), DC blocker,
-                sync prefilters, plus the numpy plan builders.
-* ``models``  — ``MultifmChain`` (production tier) and the streaming
-                ``ReceivePipeline``.
-* ``cli``     — ``pipeline-torch``, file-capture mode.
+                and frame-form resamplers (``ops.row_resampler`` and
+                ``ops.frame_resampler``, CUDA kernels K3 and K4), the DC
+                blocker (its exact tier a CUDA kernel too), sync prefilters,
+                plus the numpy plan builders.
+* ``models``  — ``MultifmChain`` (production tier), the streaming
+                ``ReceivePipeline`` and the decoders' ``ResamplerChain``.
+* ``runtime`` — ``PushResampler`` and the CLIs' streaming helpers.
+* ``cli``     — ``pipeline-torch`` (file-capture mode), ``resampler-torch``
+                and ``decoder-torch``.
 * ``kernels`` — builds ``csrc/*.cu`` with ``nvcc`` at first use.
-* ``utils``   — conversion of plans and stream state to and from the JAX
-                package's.
+* ``utils``   — conversion of plans, chain state and stream state to and
+                from the JAX package's.
 
 The package imports torch and numpy, never jax: the protocol decoders,
 signal generators and config/IQ utilities are reused from the JAX package's

@@ -1,1 +1,2 @@
-"""Command-line tools of the port: ``pipeline-torch``."""
+"""Command-line tools of the port: ``pipeline-torch``, ``resampler-torch``
+and ``decoder-torch``."""

@@ -7,12 +7,15 @@
 // models/pipeline.py:192-202).
 //
 // What it computes: per channel g the stream T = carry (n_carry samples)
-// ++ block (n samples) cut into rows of ROW_IN; output row m is
-//     out[g, m, j] = f32(sum_{k < ROW_IN} T[m*ROW_IN + k] * w0[k, j]
-//                        + sum_{k < sp} T[(m+1)*ROW_IN + k] * w1[k, j])
-//                    * (1 / 16384)
-// with exact int32 accumulation; samples past the stream's end are zero
-// (the spill taps past the filter span are zero too).
+// ++ block (n samples) cut into rows of ROW_IN; output row m holds
+//     acc[g, m, j] = sum_{k < ROW_IN} T[m*ROW_IN + k] * w0[k, j]
+//                  + sum_{k < sp} T[(m+1)*ROW_IN + k] * w1[k, j]
+// summed in wrapping int32 (samples past the stream's end are zero, and so
+// are the spill taps past the filter span). Two epilogues: f32(acc) / 16384
+// (the fast tier) or int16 round_q28_q14(acc) = (acc >> 14) +
+// ((acc >> 13) & 1), wrapped to int16 (the exact tier, bit-identical to
+// the reference's filter/utils.c:89-112; a float cannot carry it, as |acc|
+// exceeds 2^24).
 //
 // What bounds it on the H100: integer issue, and launch latency at the
 // pipeline's size. At the 8-channel pager width (5/12 ratio: ROW_IN=1536,
@@ -67,13 +70,15 @@ __device__ __forceinline__ void accumulate(unsigned (&acc)[kMt],
   }
 }
 
-// grid = (ceil(m / kMt), ceil(k_row / kCols), G), block = kCols threads
+// grid = (ceil(m / kMt), ceil(k_row / kCols), G), block = kCols threads;
+// out is float (kQ14 false) or int16_t (kQ14 true)
+template <bool kQ14>
 __global__ void __launch_bounds__(kCols)
 row_resample_kernel(const int16_t* __restrict__ carry,
                     const int16_t* __restrict__ block,
                     const int16_t* __restrict__ w0,
                     const int16_t* __restrict__ w1,
-                    float* __restrict__ out,
+                    void* __restrict__ out,
                     int m, int row_in, int k_row, int sp, int n_carry,
                     long long n) {
   __shared__ __align__(16) int16_t xs[kMt][kKc];
@@ -102,12 +107,17 @@ row_resample_kernel(const int16_t* __restrict__ carry,
     __syncthreads();
   }
   if (j >= k_row) return;
-  float* og = out + (size_t)g * m * k_row;
+  const size_t base = (size_t)g * m * k_row;
 #pragma unroll
   for (int mi = 0; mi < kMt; ++mi) {
     if (m0 + mi < m) {
-      og[(size_t)(m0 + mi) * k_row + j] =
-          __int2float_rn((int)acc[mi]) * (1.0f / 16384.0f);
+      const size_t o = base + (size_t)(m0 + mi) * k_row + j;
+      const int a = (int)acc[mi];
+      if (kQ14) {
+        ((int16_t*)out)[o] = (int16_t)((a >> 14) + ((a >> 13) & 1));
+      } else {
+        ((float*)out)[o] = __int2float_rn(a) * (1.0f / 16384.0f);
+      }
     }
   }
 }
@@ -115,19 +125,27 @@ row_resample_kernel(const int16_t* __restrict__ carry,
 }  // namespace
 
 // carry [G, n_carry] int16, block [G, n] int16, w0 [row_in, k_row] int16,
-// w1 [sp, k_row] int16 (unused when sp == 0) -> out [G, m, k_row] f32
+// w1 [sp, k_row] int16 (unused when sp == 0) -> out [G, m, k_row], f32
+// for out_mode 0, int16 Q.14 for out_mode 1
 extern "C" int tsl_row_resample(const void* carry, const void* block,
                                 const void* w0, const void* w1, void* out,
                                 int m, int row_in, int k_row, int sp,
                                 int n_carry, long long n, int groups,
-                                void* stream) {
+                                int out_mode, void* stream) {
   if (m <= 0 || row_in <= 0 || k_row <= 0 || sp < 0 || sp > row_in ||
-      n_carry < 0 || n < 0 || groups <= 0 || groups > 65535) {
+      n_carry < 0 || n < 0 || groups <= 0 || groups > 65535 ||
+      (out_mode != 0 && out_mode != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((m + kMt - 1) / kMt, (k_row + kCols - 1) / kCols, groups);
-  row_resample_kernel<<<grid, kCols, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)carry, (const int16_t*)block, (const int16_t*)w0,
-      (const int16_t*)w1, (float*)out, m, row_in, k_row, sp, n_carry, n);
+  if (out_mode == 1) {
+    row_resample_kernel<true><<<grid, kCols, 0, (cudaStream_t)stream>>>(
+        (const int16_t*)carry, (const int16_t*)block, (const int16_t*)w0,
+        (const int16_t*)w1, out, m, row_in, k_row, sp, n_carry, n);
+  } else {
+    row_resample_kernel<false><<<grid, kCols, 0, (cudaStream_t)stream>>>(
+        (const int16_t*)carry, (const int16_t*)block, (const int16_t*)w0,
+        (const int16_t*)w1, out, m, row_in, k_row, sp, n_carry, n);
+  }
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 The kernels have a plain C interface (pointers, ints and the CUDA stream),
 so the library builds in seconds without PyTorch's headers and binds with
 ctypes. It is built at first use into ``build/tsl_sdr_tpu_torch/`` beside
-the package, and rebuilt whenever a hash of the sources and flags changes.
+the package (one ``nvcc`` per source, all started together, then one link),
+and rebuilt whenever a hash of the sources and flags changes.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises on anything but success.
 """
@@ -24,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tsl_sdr_tpu_torch"
 LIB_NAME = "libtsl_torch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,7 +36,10 @@ SIGNATURES = {
     "tsl_chain_fm": [_P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _P],
     "tsl_row_resample": [_P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _L, _I, _P],
+                         _I, _I, _I, _I, _I, _L, _I, _I, _P],
+    "tsl_frame_resample": [_P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _L, _I, _I, _P],
+    "tsl_dc_block_exact": [_P, _P, _P, _L, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -64,19 +68,40 @@ def _digest() -> str:
     return h.hexdigest()
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; raise on the first that fails.
+    Returns their standard error, concatenated."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    logs = []
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
 def _build(lib_path: Path, digest: str) -> None:
     global build_seconds, ptxas_log
     t0 = time.monotonic()
-    tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources()]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
+    tag = f"tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    try:
+        ptxas_log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)]
+                              for src, obj in zip(_sources(), objs)])
+        tmp = lib_path.with_suffix(f".{tag}.so")
+        _run_all([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib_path)
-    ptxas_log = res.stderr
     (BUILD_DIR / f"{LIB_NAME}.sha256").write_text(digest)
     build_seconds = time.monotonic() - t0
 

@@ -7,8 +7,10 @@ Every device stage of a block runs in one call, :meth:`_SizedProgram.dev_step`:
 1. widen 8-bit wire bytes;
 2. channelize + FM-demodulate (kernel K1, ``ops.chain``);
 3. invert polarity;
-4. resample each ratio group (kernel K3, ``ops.row_resampler``, one launch
-   for all channels of the group);
+4. resample each ratio group, one launch for all channels of the group:
+   kernel K3 (``ops.row_resampler``) for a plan with a packed-row form,
+   kernel K4 (``ops.frame_resampler``) for one without (25/16 at
+   decimation 50, say), as the JAX pipeline's ``resample_step`` picks;
 5. DC-block (chunked linear scan, ``ops.dc_blocker``);
 6. sign-slice, sync prefilter and bit-pack (``ops.sync_prefilter``).
 
@@ -39,6 +41,7 @@ from tsl_sdr_tpu.utils.iq import WIRE_DTYPES, WIRE_ZERO, widen_iq_bytes
 from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
 from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
 from tsl_sdr_tpu_torch.ops import polyphase, q14, sync_prefilter
+from tsl_sdr_tpu_torch.ops.q14 import to_int16
 
 PROTOCOL_RATES = {"pocsag": 38_400, "flex": 16_000, "ais": 48_000}
 # largest resampler interpolation/decimation term a channel may need
@@ -99,15 +102,6 @@ def widen_wire(vals: torch.Tensor, wire_fmt: str) -> torch.Tensor:
     raise ValueError(f"unknown wire_fmt {wire_fmt!r}")
 
 
-def to_int16(x: torch.Tensor) -> torch.Tensor:
-    """float -> int16 as the JAX package's ``astype(jnp.int16)``: truncate
-    toward zero, saturate at the int16 range (a bare ``.to(torch.int16)``
-    of an out-of-range float is not specified)."""
-    if not x.is_floating_point():
-        return x.to(torch.int16)
-    return torch.clamp(x, -32768, 32767).to(torch.int16)
-
-
 class _HostCopy:
     """A device->host copy started now and waited for at :meth:`numpy`:
     into pinned memory with ``non_blocking=True`` and a CUDA event on the
@@ -158,7 +152,7 @@ class _SizedProgram:
                                  f"samples per block, the chain gives "
                                  f"{k_chain}")
             self.plans[gid] = plan
-            self.rs_taps[gid] = polyphase.row_taps(plan, device=dev)
+            self.rs_taps[gid] = polyphase.plan_taps(plan, device=dev)
         self.k_out = {
             i: (self.plans[pipe._ratio_gid[i]].block_out
                 if pipe._ratio_gid[i] is not None else k_chain)

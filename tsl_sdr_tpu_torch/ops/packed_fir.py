@@ -183,9 +183,10 @@ def packed_fir_step(plan: PackedFirPlan, carry_vals: torch.Tensor,
 
 def next_carry(carry_vals: torch.Tensor, block: torch.Tensor,
                n: int) -> torch.Tensor:
-    """The last ``n`` values of ``carry ++ block``, copying only those."""
+    """The last ``n`` values of ``carry ++ block`` along the last dim
+    (each channel's, for ``[G, n]`` tensors), copying only those."""
     if n == 0:
-        return carry_vals[:0].clone()
-    if block.numel() >= n:
-        return block[-n:].clone()
-    return torch.cat([carry_vals, block])[-n:]
+        return carry_vals[..., :0].clone()
+    if block.shape[-1] >= n:
+        return block[..., block.shape[-1] - n:].clone()
+    return torch.cat([carry_vals, block], dim=-1)[..., -n:].contiguous()

@@ -1,16 +1,28 @@
-"""Polyphase rational resampler: numpy plan + the packed-row streaming step.
+"""Polyphase rational resampler: numpy plan + the streaming step.
 
 Port of ``tsl_sdr_tpu/ops/polyphase.py:36-205`` (plan builder, copied as
-numpy because the JAX module imports jax at load) and of
-``resample_step(exact=False)`` in its packed-row form (``:304-371``).
+numpy because the JAX module imports jax at load) and of ``resample_step``
+(``:348-391``) in both of its forms, both tiers.
 
-Packed-row form: each channel's stream ``T = carry ++ block`` is cut into
-rows of ``ROW_IN`` samples; row ``m`` yields ``K_ROW`` outputs from its own
-samples against ``w_row [ROW_IN, K_ROW]`` plus the first ``sp`` samples of
-row ``m + 1`` against the trimmed spill matrix ``w_spill [sp, K_ROW]``
-(reference hot loop ``filter/polyphase_fir.c:162-233``). The product runs in
-:func:`tsl_sdr_tpu_torch.ops.row_resampler.row_resample` — kernel K3 on the
+Packed-row form (``plan.k_row``): each channel's stream ``T = carry ++
+block`` is cut into rows of ``ROW_IN`` samples; row ``m`` yields ``K_ROW``
+outputs from its own samples against ``w_row [ROW_IN, K_ROW]`` plus the
+first ``sp`` samples of row ``m + 1`` against the trimmed spill matrix
+``w_spill [sp, K_ROW]`` (reference hot loop ``filter/polyphase_fir.c:
+162-233``). The product runs in
+:func:`tsl_sdr_tpu_torch.ops.row_resampler.row_resample`: kernel K3 on the
 card, one launch for every channel of a ratio group.
+
+Frame form (``plan.k_row == 0``): output ``m * I_rep + j`` is column
+``j``'s phase filter over the window at ``m * D_rep + oj[j]``, in
+:func:`tsl_sdr_tpu_torch.ops.frame_resampler.frame_resample` (kernel K4).
+
+Both accumulate int16 x int16 products in wrapping int32. The fast tier
+(``exact=False``) scales them to float32 sample units, the exact tier
+rounds them Q.28 -> Q.14 as the reference does; each is bit-identical to
+the JAX ``resample_step`` of the same tier. (The JAX package's per-output
+gather oracle, ``exact_impl="gather"``, is not ported: it computes the same
+exact output, and the JAX package remains the oracle.)
 """
 
 from __future__ import annotations
@@ -22,6 +34,8 @@ import numpy as np
 import torch
 
 from tsl_sdr_tpu_torch.ops import q14
+from tsl_sdr_tpu_torch.ops.frame_resampler import FrameTaps, frame_resample
+from tsl_sdr_tpu_torch.ops.frame_resampler import frame_taps
 from tsl_sdr_tpu_torch.ops.packed_fir import next_carry
 from tsl_sdr_tpu_torch.ops.row_resampler import row_resample
 
@@ -161,35 +175,58 @@ class RowTaps(NamedTuple):
 
 def row_taps(plan: ResamplerPlan, *, device) -> RowTaps:
     if not plan.k_row:
-        raise NotImplementedError(
-            "only packed-row resampler plans are ported (plan.k_row == 0)")
+        raise ValueError("plan has no packed-row form (k_row == 0); "
+                         "use plan_taps")
     w1 = plan.w_spill_i16
     return RowTaps(
         torch.from_numpy(np.ascontiguousarray(plan.w_row_i16)).to(device),
         None if w1 is None else torch.from_numpy(w1).to(device))
 
 
-def init_resampler_carry(plan: ResamplerPlan, groups: int, *,
-                         device) -> torch.Tensor:
-    """Zero history for ``groups`` channels: ``[G, carry_len]`` int16."""
-    return torch.zeros((groups, plan.carry_len), dtype=torch.int16,
-                       device=device)
+def plan_taps(plan: ResamplerPlan, *, device) -> RowTaps | FrameTaps:
+    """A plan's taps on the device: packed-row (K3) where the plan has
+    that form, else frame form (K4) — the JAX ``resample_step``'s choice."""
+    if plan.k_row:
+        return row_taps(plan, device=device)
+    return frame_taps(plan, device=device)
+
+
+def init_resampler_carry(plan: ResamplerPlan, groups: int, *, device,
+                         prefix=None) -> torch.Tensor:
+    """History for ``groups`` channels: ``[G, carry_len]`` int16, zeros or
+    ``prefix`` (each channel's first ``carry_len`` stream samples, which
+    aligns output 0 with the reference's first output)."""
+    if prefix is None:
+        return torch.zeros((groups, plan.carry_len), dtype=torch.int16,
+                           device=device)
+    prefix = torch.as_tensor(prefix, dtype=torch.int16).reshape(groups, -1)
+    if prefix.shape[1] != plan.carry_len:
+        raise ValueError(f"prefix of {prefix.shape[1]} samples per channel, "
+                         f"plan carries {plan.carry_len}")
+    return prefix.to(device).contiguous()
 
 
 def resample_step(plan: ResamplerPlan, carry: torch.Tensor,
-                  block: torch.Tensor, taps: RowTaps):
-    """Fast tier, packed-row form, batched over a ratio group.
+                  block: torch.Tensor, taps: RowTaps | FrameTaps, *,
+                  exact: bool = False):
+    """One streaming step, batched over a ratio group.
 
-    carry [G, carry_len] int16, block [G, block_in] int16 -> (new carry,
-    out [G, block_out] float32 in sample units). Each channel equals the
-    JAX ``resample_step(plan, state, block, exact=False)``."""
-    if plan.carry_len != plan.spill:
-        raise ValueError(f"packed-row plans carry exactly the spill "
-                         f"({plan.carry_len} != {plan.spill})")
+    carry [G, carry_len] int16, block [G, block_in] int16, ``taps`` from
+    :func:`plan_taps` -> (new carry, out [G, block_out]): float32 sample
+    units (``exact=False``) or int16 Q.14 (``exact=True``). Each channel
+    equals the JAX ``resample_step(plan, state, block, exact=exact)``."""
     if block.shape[1] != plan.block_in:
         raise ValueError(f"block of {block.shape[1]} samples per channel, "
                          f"plan expects {plan.block_in}")
-    out = row_resample(carry, block, taps.w0, taps.w1, row_in=plan.row_in)
-    new_carry = torch.stack([next_carry(carry[g], block[g], plan.carry_len)
-                             for g in range(block.shape[0])])
-    return new_carry, out.reshape(block.shape[0], -1)
+    out = "q14" if exact else "f32"
+    if plan.k_row:
+        if plan.carry_len != plan.spill:
+            raise ValueError(f"packed-row plans carry exactly the spill "
+                             f"({plan.carry_len} != {plan.spill})")
+        res = row_resample(carry, block, taps.w0, taps.w1,
+                           row_in=plan.row_in, out=out)
+    else:
+        res = frame_resample(carry, block, taps,
+                             frames=plan.block_out // plan.i_rep, out=out)
+    new_carry = next_carry(carry, block, plan.carry_len)
+    return new_carry, res.reshape(block.shape[0], -1)

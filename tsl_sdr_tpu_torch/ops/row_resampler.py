@@ -1,12 +1,16 @@
 """Packed-row rational resampler (kernel K3) behind one function on tensors.
 
-:func:`row_resample` computes, for every channel ``g`` of a ratio group,
+:func:`row_resample` computes, for every channel ``g`` of a ratio group, the
+int32 accumulators
 
-    out[g, m, j] = (T[m] @ w0 + T[m+1, :sp] @ w1)[j] / 16384
+    acc[g, m, j] = (T[m] @ w0 + T[m+1, :sp] @ w1)[j]
 
 over the rows of ``T = carry ++ block`` (``ROW_IN`` samples each, zeros past
-the stream's end), with exact int32 accumulation. On a CUDA tensor it
-launches ``csrc/row_resampler.cu`` (which replaces the TPU kernel
+the stream's end), summed in wrapping int32, and writes them as
+``out="f32"`` (``float32(acc) / 16384``, the fast tier) or ``out="q14"``
+(int16 ``round_q28_q14(acc)``, the exact tier; a float32 cannot carry it, as
+``|acc|`` exceeds 2^24). On a CUDA tensor it launches
+``csrc/row_resampler.cu`` (which replaces the TPU kernel
 ``tsl_sdr_tpu/ops/pallas_resampler.py`` ``_row_kernel_v2``/``_row_call_v2``
 and the XLA product of ``tsl_sdr_tpu/ops/polyphase.py:304-345``); on a CPU
 tensor it runs :func:`row_resample_plain`. See the source note in
@@ -19,17 +23,22 @@ from __future__ import annotations
 import torch
 
 from tsl_sdr_tpu_torch.kernels import build
+from tsl_sdr_tpu_torch.ops import q14
 
-_Q14_SCALE = 1.0 / 16384.0
+OUT_MODES = {"f32": (0, torch.float32), "q14": (1, torch.int16)}
 
 
 def row_resample(carry: torch.Tensor, block: torch.Tensor, w0: torch.Tensor,
-                 w1: torch.Tensor | None, *, row_in: int) -> torch.Tensor:
+                 w1: torch.Tensor | None, *, row_in: int,
+                 out: str = "f32") -> torch.Tensor:
     """carry [G, n_carry] int16, block [G, n] int16, w0 [row_in, k_row]
-    int16, w1 [sp, k_row] int16 or None -> out [G, n // row_in, k_row]
-    float32."""
+    int16, w1 [sp, k_row] int16 or None -> [G, n // row_in, k_row] float32
+    (``out="f32"``) or int16 (``out="q14"``)."""
+    if out not in OUT_MODES:
+        raise ValueError(f"out must be 'f32' or 'q14', not {out!r}")
     if block.device.type == "cpu":
-        return row_resample_plain(carry, block, w0, w1, row_in=row_in)
+        return row_resample_plain(carry, block, w0, w1, row_in=row_in,
+                                  out=out)
     if block.device.type != "cuda":
         raise ValueError(f"row_resample runs on cuda or cpu, not "
                          f"{block.device}")
@@ -51,27 +60,32 @@ def row_resample(carry: torch.Tensor, block: torch.Tensor, w0: torch.Tensor,
             raise ValueError(f"{name} on {t.device}, block on {block.device}")
     if m == 0:
         raise ValueError(f"block of {n} samples holds no {row_in}-sample row")
+    mode, dtype = OUT_MODES[out]
     lib = build.load()
-    out = torch.empty((g, m, k_row), dtype=torch.float32, device=block.device)
+    res = torch.empty((g, m, k_row), dtype=dtype, device=block.device)
     stream = torch.cuda.current_stream(block.device).cuda_stream
     err = lib.tsl_row_resample(
         carry.data_ptr(), block.data_ptr(), w0.data_ptr(),
-        w0.data_ptr() if w1 is None else w1.data_ptr(), out.data_ptr(),
-        m, row_in, k_row, sp, carry.shape[1], n, g, stream)
+        w0.data_ptr() if w1 is None else w1.data_ptr(), res.data_ptr(),
+        m, row_in, k_row, sp, carry.shape[1], n, g, mode, stream)
     build.check(err, "tsl_row_resample")
-    row_resample.launches += 1
-    return out
+    if mode:
+        row_resample.launches_q14 += 1
+    else:
+        row_resample.launches += 1
+    return res
 
 
-row_resample.launches = 0
+row_resample.launches = 0       # launches with out="f32"
+row_resample.launches_q14 = 0   # launches with out="q14"
 
 
 def row_resample_plain(carry: torch.Tensor, block: torch.Tensor,
                        w0: torch.Tensor, w1: torch.Tensor | None, *,
-                       row_in: int) -> torch.Tensor:
+                       row_in: int, out: str = "f32") -> torch.Tensor:
     """Plain torch version of :func:`row_resample`: float64 products (exact
     for int16 x int16 sums of a few thousand terms), wrapped to int32,
-    then the same float32 scale."""
+    then the same epilogue."""
     g, n = block.shape
     m = n // row_in
     total = torch.cat([carry, block], dim=1)[:, :(m + 1) * row_in]
@@ -82,5 +96,4 @@ def row_resample_plain(carry: torch.Tensor, block: torch.Tensor,
     acc = rows[:, :m] @ w0.to(torch.float64)
     if w1 is not None:
         acc += rows[:, 1:, :w1.shape[0]] @ w1.to(torch.float64)
-    acc = acc.to(torch.int64).to(torch.int32).to(torch.float32)
-    return acc * _Q14_SCALE
+    return q14.from_acc(acc.to(torch.int64).to(torch.int32), out)

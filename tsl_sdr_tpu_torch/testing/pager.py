@@ -31,6 +31,23 @@ def lpf_taps() -> np.ndarray:
     return firdes_low_pass(1.0, FS, 9_600, 7_000)
 
 
+# The same band at decimation 50: 24,576 Hz channels, where POCSAG needs a
+# 25/16 resampler, a ratio with no packed-row form (lcm(25, 128) > 1024),
+# so the group runs the frame-form resampler. The six POCSAG channels only.
+# The LPF's stopband starts at 16 kHz: what folds back past the channel's
+# 12,288 Hz Nyquist lands above 8.5 kHz, clear of the POCSAG signal.
+DEC50_DECIMATION = 50
+DEC50_CHANNELS = 6
+
+
+def dec50_lpf_taps() -> np.ndarray:
+    return firdes_low_pass(1.0, FS, 10_000, 6_000)
+
+
+def dec50_channel_specs(spec_type):
+    return channel_specs(spec_type)[:DEC50_CHANNELS]
+
+
 def channel_specs(spec_type):
     """The eight channels as ``spec_type`` (either package's ChannelSpec)."""
     return [spec_type(CENTER_HZ + off, proto, dc_block=dc)

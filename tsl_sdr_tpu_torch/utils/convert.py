@@ -1,7 +1,10 @@
 """Plans and stream state, to and from the JAX package's.
 
-The port's plan tuples have the JAX plans' fields, and its stream state
-mirrors the JAX pipeline's ``s["st"]`` tree on the XLA tier:
+The port's plan tuples have the JAX plans' fields. A ``ResamplerChain``'s
+state is the JAX ``ResamplerChainState(resampler=ResamplerState(carry),
+dc=DcBlockerState(x_prev, y_prev, acc))`` with the carry as a tensor in
+place of the ``ResamplerState``. The pipeline's stream state mirrors the JAX
+pipeline's ``s["st"]`` tree on the XLA tier:
 
     {"chain": MultifmFastState(carry_vals, prev_r, prev_i, out_index),
      "rs":    {ratio: carry [G, carry_len] int16},
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from tsl_sdr_tpu_torch.models.channelizer import MultifmFastState
+from tsl_sdr_tpu_torch.models.resampler import ResamplerChainState
 from tsl_sdr_tpu_torch.ops.dc_blocker import DcBlockerState
 from tsl_sdr_tpu_torch.ops.packed_fir import PackedFirPlan
 from tsl_sdr_tpu_torch.ops.polyphase import ResamplerPlan
@@ -86,3 +90,21 @@ def stream_state_to_jax(st: dict, like: dict) -> dict:
         "dc": {i: dc_type(*(n(x) for x in v)) for i, v in st["dc"].items()},
         "tails": {p: n(v) for p, v in st["tails"].items()},
     }
+
+
+def chain_state_from_jax(st, *, device="cpu") -> ResamplerChainState:
+    """A JAX ``ResamplerChainState`` -> the port's, on ``device``."""
+    return ResamplerChainState(
+        resampler=_t(st.resampler.carry, device, np.int16),
+        dc=DcBlockerState(*(_t(x, device, np.int32) for x in st.dc)))
+
+
+def chain_state_to_jax(st: ResamplerChainState, like):
+    """The port's chain state -> a JAX ``ResamplerChainState`` of numpy
+    leaves, with the tuple types of ``like`` (a JAX chain state)."""
+    def n(t):
+        return t.detach().cpu().numpy().copy()
+
+    return type(like)(
+        resampler=type(like.resampler)(carry=n(st.resampler)),
+        dc=type(like.dc)(*(n(x) for x in st.dc)))
