@@ -145,11 +145,15 @@ def test_ragged_last_tile_matches_xla():
 
 
 @pytest.mark.parametrize("row,cr,hc", [(128, 9, 16), (640, 1, 64),
-                                       (128, 2, 512), (1280, 6, 8)])
+                                       (128, 2, 512), (1280, 6, 8),
+                                       (3200, 1, 192)])
 def test_tile_rows_fit_the_kernel(row, cr, hc):
-    tr = k1.tile_rows(row, cr, hc)
-    assert (tr + 1) % 8 == 0 and tr >= 7
-    x_bytes = -(-(tr + 1 + cr) * row * 2 // 16) * 16
+    """Tiles of whole 16-row m-tiles whose staged rows (high and low byte
+    planes, pitch ROW + 16) and f32 accumulators fit in 227 KB (3,200-value
+    rows: the decimation-50 pipeline)."""
+    tr = k1.tile_rows(row, cr, hc, u_len=(cr + 1) * row)
+    assert (tr + 1) % 16 == 0 and 15 <= tr <= 255
+    x_bytes = 2 * (tr + 1 + cr) * (row + 16)
     assert x_bytes + 2 * (tr + 1) * hc * 4 <= 227 * 1024
 
 

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain torch versions.
 
 These run only on a machine with an NVIDIA GPU and nvcc (the kernels have
-no CPU mode); elsewhere each test skips. The file imports no jax, so the
-card's machine can run it without the JAX package's test setup:
+no CPU mode); elsewhere each test skips. The file imports nothing of jax
+or the JAX package, so the card's machine can run it without the JAX
+package's test setup:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -17,7 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-from tsl_sdr_tpu.utils.filter_design import design_rational_resampler_filter
 from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
 from tsl_sdr_tpu_torch.ops import chain as k1
 from tsl_sdr_tpu_torch.ops import dc_blocker
@@ -25,6 +25,8 @@ from tsl_sdr_tpu_torch.ops import frame_resampler as k4
 from tsl_sdr_tpu_torch.ops import polyphase, q14
 from tsl_sdr_tpu_torch.ops import row_resampler as k3
 from tsl_sdr_tpu_torch.testing import pager
+from tsl_sdr_tpu_torch.utils.filter_design import (
+    design_rational_resampler_filter)
 
 pytestmark = pytest.mark.cuda
 
@@ -42,12 +44,18 @@ def _iq(n, seed):
         np.int16)
 
 
-@pytest.mark.parametrize("tiles,extra", [(4, 0), (4, 2), (0, 3)])
-def test_chain_kernel_matches_plain(cuda, tiles, extra):
+@pytest.mark.parametrize("tiles,extra,decim", [(4, 0, 32), (4, 2, 32),
+                                               (0, 3, 32), (3, 5, 50)])
+def test_chain_kernel_matches_plain(cuda, tiles, extra, decim):
     """Whole tiles, a ragged last tile, and a block shorter than a tile, at
-    four of the pager deployment's channels (577 taps, decimate by 32)."""
-    ch = MultifmChain(pager.lpf_taps(), pager.OFFSETS_HZ[::2], pager.FS,
-                      pager.DECIMATION, device=cuda)
+    four of the pager deployment's channels (577 taps, decimate by 32), and
+    at decimation 50 (3,200-value rows: 16-row tiles, taps read from L2)."""
+    if decim == 32:
+        ch = MultifmChain(pager.lpf_taps(), pager.OFFSETS_HZ[::2], pager.FS,
+                          pager.DECIMATION, device=cuda)
+    else:
+        ch = MultifmChain(pager.dec50_lpf_taps(), pager.OFFSETS_HZ[:6],
+                          pager.FS, pager.DEC50_DECIMATION, device=cuda)
     plan = ch.packed_plan
     rows = tiles * ch.taps.tile_rows + extra
     vals = torch.from_numpy(
@@ -69,7 +77,7 @@ def test_chain_kernel_matches_plain(cuda, tiles, extra):
 @pytest.mark.parametrize("g,m", [(2, 85), (3, 9), (1, 1)])
 def test_row_resample_kernel_matches_plain(cuda, g, m):
     """The pipeline's [2 channels, 85 rows] FLEX block, and row counts off
-    the kernel's 8-row tile; K_ROW = 640 is five 128-column tiles."""
+    the kernel's 16-row tile; K_ROW = 640 is twenty 32-column blocks."""
     coeffs = q14.quantize_q14(design_rational_resampler_filter(5, 12, 0.4))
     plan = polyphase.make_resampler_plan(coeffs, 5, 12,
                                          block_out_target=m * 640,
@@ -81,9 +89,8 @@ def test_row_resample_kernel_matches_plain(cuda, g, m):
     block = torch.from_numpy(rng.integers(
         -32768, 32767, size=(g, plan.block_in)).astype(np.int16)).to(cuda)
     before = k3.row_resample.launches
-    got = k3.row_resample(carry, block, taps.w0, taps.w1, row_in=plan.row_in)
-    ref = k3.row_resample_plain(carry, block, taps.w0, taps.w1,
-                                row_in=plan.row_in)
+    got = k3.row_resample(carry, block, taps, row_in=plan.row_in)
+    ref = k3.row_resample_plain(carry, block, taps, row_in=plan.row_in)
     torch.cuda.synchronize()
     assert k3.row_resample.launches == before + 1
     assert got.shape == (g, m, plan.k_row)
@@ -148,13 +155,37 @@ def test_row_resample_q14_matches_plain(cuda, g, m):
     block = torch.from_numpy(rng.integers(
         -32768, 32767, size=(g, plan.block_in)).astype(np.int16)).to(cuda)
     before = k3.row_resample.launches_q14
-    got = k3.row_resample(carry, block, taps.w0, taps.w1, row_in=plan.row_in,
-                          out="q14")
-    ref = k3.row_resample_plain(carry, block, taps.w0, taps.w1,
-                                row_in=plan.row_in, out="q14")
+    got = k3.row_resample(carry, block, taps, row_in=plan.row_in, out="q14")
+    ref = k3.row_resample_plain(carry, block, taps, row_in=plan.row_in,
+                                out="q14")
     torch.cuda.synchronize()
     assert k3.row_resample.launches_q14 == before + 1
     assert got.dtype == torch.int16 and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("i_,d_,align,g", [(1, 17, False, 2),
+                                           (5, 36, True, 1),
+                                           (3, 64, True, 2)])
+@pytest.mark.parametrize("out", ["f32", "q14"])
+def test_row_resample_kernel_multipass_matches_plain(cuda, i_, d_, align, g,
+                                                     out):
+    """Packed-row plans whose K (row_in + spill: 2,720, 4,864 and 8,896)
+    passes the 2,048 the kernel stages at a time: it restages in passes,
+    the last one shorter, and some warps get no k-step of a pass."""
+    coeffs = q14.quantize_q14(design_rational_resampler_filter(i_, d_, 0.4))
+    plan = polyphase.make_resampler_plan(coeffs, i_, d_, align_k_row=align)
+    assert plan.k_row and plan.row_in + plan.spill > 2048
+    taps = polyphase.row_taps(plan, device=cuda)
+    rng = np.random.default_rng(i_ * d_)
+    carry = torch.from_numpy(rng.integers(
+        -32768, 32767, size=(g, plan.carry_len)).astype(np.int16)).to(cuda)
+    block = torch.from_numpy(rng.integers(
+        -32768, 32767, size=(g, plan.block_in)).astype(np.int16)).to(cuda)
+    got = k3.row_resample(carry, block, taps, row_in=plan.row_in, out=out)
+    ref = k3.row_resample_plain(carry, block, taps, row_in=plan.row_in,
+                                out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 def test_dc_block_exact_kernel_matches_plain(cuda):
@@ -191,8 +222,10 @@ def test_wrappers_raise_on_bad_input(cuda):
     with pytest.raises(ValueError, match="int16"):
         k1.chain_fm(ch.taps, st.carry_vals.to(torch.int32), prev,
                     block[:ch.packed_plan.row])
-    w0 = torch.zeros((16, 8), dtype=torch.int16, device=cuda)
-    with pytest.raises(ValueError, match="w0"):
+    w0 = torch.zeros((16, 32), dtype=torch.int16, device=cuda)
+    plane = torch.zeros((1, 4, 32, 8), dtype=torch.uint8, device=cuda)
+    bad = k3.RowTaps(w0, None, plane.to(torch.int8), plane)
+    with pytest.raises(ValueError, match="w_hi"):
         k3.row_resample(torch.zeros((1, 4), dtype=torch.int16, device=cuda),
                         torch.zeros((1, 64), dtype=torch.int16, device=cuda),
-                        w0.to(torch.float32), None, row_in=16)
+                        bad, row_in=16)

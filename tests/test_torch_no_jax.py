@@ -1,12 +1,11 @@
-"""The port runs where jax is absent.
+"""The port runs where jax and the JAX package are absent.
 
-A subprocess makes ``jax`` unimportable before anything loads, then imports
-the port, its pipeline and its CLI, builds a 4-channel CPU pipeline and
-decodes one POCSAG burst. A second one runs ``decoder-torch`` (a 25/16
-frame-form POCSAG input, exact tier, ``-b``) and ``resampler-torch``. The
-JAX package's jax-free modules (decoders, generators, utils) load; anything
-that would import jax fails, and the decoders fall back to their numpy
-tiers.
+A subprocess makes ``jax``, ``jaxlib`` and ``tsl_sdr_tpu`` unimportable
+before anything loads, then imports the port, its pipeline and its CLI,
+builds a 4-channel CPU pipeline and decodes one POCSAG burst, every decoder
+on its native state machine. A second one runs ``decoder-torch`` (a 25/16
+frame-form POCSAG input, exact tier, ``-b``) and ``resampler-torch``. No
+file of the port, and not ``chip_smoke.py``, imports either package.
 """
 
 import os
@@ -17,10 +16,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-_SCRIPT = r"""
+_BLOCK = r"""
 import sys
-sys.modules["jax"] = None
-sys.modules["jaxlib"] = None
+for name in ("jax", "jaxlib", "tsl_sdr_tpu"):
+    sys.modules[name] = None
+"""
+
+_CHECK = r"""
+loaded = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "tsl_sdr_tpu")
+          and sys.modules[m] is not None]
+assert not loaded, loaded
+"""
+
+_SCRIPT = _BLOCK + r"""
 import numpy as np
 import tsl_sdr_tpu_torch
 import tsl_sdr_tpu_torch.cli.pipeline
@@ -29,7 +38,7 @@ import tsl_sdr_tpu_torch.models.resampler
 import tsl_sdr_tpu_torch.runtime.stream
 from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
 from tsl_sdr_tpu_torch.testing import pager
-from tsl_sdr_tpu.testing import pocsag_gen
+from tsl_sdr_tpu_torch.testing import pocsag_gen
 
 bb = pocsag_gen.generate(
     [pocsag_gen.PocsagBurst(capcode=424242, function=1, kind="alpha",
@@ -44,23 +53,19 @@ pipe = ReceivePipeline(pager.lpf_taps(), pager.CENTER_HZ, pager.FS,
 res = pipe.process_capture(iq.astype(np.int16))
 assert [(m.capcode, m.data) for m in res[1]] == [(424242, b"NO JAX HERE")], res
 assert not any(res[i] for i in (0, 2, 3)), res
-assert all(d._nat is None for d in pipe._decoders), "expected numpy tiers"
-assert sys.modules["jax"] is None
-loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
-          and sys.modules[m] is not None]
-assert not loaded, loaded
+assert all(d._nat is not None for d in pipe._decoders), "expected native"
+assert sys.modules["jax"] is None and sys.modules["tsl_sdr_tpu"] is None
+""" + _CHECK + r"""
 print("NO-JAX OK")
 """
 
 
-_CLI_SCRIPT = r"""
-import json, sys, tempfile
+_CLI_SCRIPT = _BLOCK + r"""
+import json, tempfile
 from pathlib import Path
-sys.modules["jax"] = None
-sys.modules["jaxlib"] = None
 import numpy as np
-from tsl_sdr_tpu.testing import pocsag_gen
-from tsl_sdr_tpu.utils.filter_design import resampler_filter_json
+from tsl_sdr_tpu_torch.testing import pocsag_gen
+from tsl_sdr_tpu_torch.utils.filter_design import resampler_filter_json
 from tsl_sdr_tpu_torch.cli import decoder, resampler
 
 bb = pocsag_gen.generate(
@@ -83,9 +88,7 @@ assert resampler.main(["-I", "25", "-D", "16", "-F", str(tmp / "f.json"),
                        str(tmp / "out.pcm")]) == 0
 out = np.fromfile(tmp / "out.pcm", np.int16)
 assert abs(out.size - pcm.size * 25 / 16) < 4096, out.size
-loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
-          and sys.modules[m] is not None]
-assert not loaded, loaded
+""" + _CHECK + r"""
 print("NO-JAX CLI OK")
 """
 
@@ -107,8 +110,11 @@ def test_decoder_and_resampler_clis_run_without_jax():
 
 
 def test_no_port_file_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes)\b",
-                         re.MULTILINE)
+    """No ``import``/``from`` of jax, jaxlib, ml_dtypes or ``tsl_sdr_tpu``
+    (``tsl_sdr_tpu_torch`` is the port itself)."""
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|tsl_sdr_tpu)(\.|\s|$)",
+        re.MULTILINE)
     files = sorted((ROOT / "tsl_sdr_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10

@@ -77,8 +77,8 @@ def test_plain_matches_pallas_interpret():
     taps = polyphase.row_taps(plan, device="cpu")
     # the Pallas rows are the stream's rows 0..m-1 (its carry IS row 0)
     got = k3.row_resample(torch.zeros((1, 0), dtype=torch.int16),
-                          torch.from_numpy(total[None].copy()), taps.w0,
-                          taps.w1, row_in=plan.row_in)[0, :m]
+                          torch.from_numpy(total[None].copy()), taps,
+                          row_in=plan.row_in)[0, :m]
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=0.01)
 
 
@@ -93,7 +93,7 @@ def test_ragged_stream_end_reads_zeros():
     carry = rng.integers(-9000, 9000, size=(2, plan.carry_len)).astype(
         np.int16)
     out = k3.row_resample(torch.from_numpy(carry), torch.from_numpy(block),
-                          taps.w0, taps.w1, row_in=plan.row_in)
+                          taps, row_in=plan.row_in)
     m = block.shape[1] // plan.row_in
     total = np.concatenate([carry, block], axis=1).astype(np.float64)
     total = np.pad(total, ((0, 0), (0, (m + 1) * plan.row_in

@@ -7,19 +7,27 @@ counterpart's path (``ops/packed_fir.py`` here ports
 * ``ops``     — the receive chain's stages on tensors: the fused
                 channelizer+FM (``ops.chain``, CUDA kernel K1), the packed-row
                 and frame-form resamplers (``ops.row_resampler`` and
-                ``ops.frame_resampler``, CUDA kernels K3 and K4), the DC
-                blocker (its exact tier a CUDA kernel too), sync prefilters,
-                plus the numpy plan builders.
+                ``ops.frame_resampler``, CUDA kernels K3 and K4), the int8
+                split that puts K1's and K3's products on the tensor cores
+                (``ops.imma_split``), the DC blocker (its exact tier a CUDA
+                kernel too), sync prefilters, plus the numpy plan builders.
 * ``models``  — ``MultifmChain`` (production tier), the streaming
-                ``ReceivePipeline`` and the decoders' ``ResamplerChain``.
-* ``runtime`` — ``PushResampler`` and the CLIs' streaming helpers.
+                ``ReceivePipeline``, the decoders' ``ResamplerChain``, and
+                the POCSAG/FLEX/AIS decoders and BCH.
+* ``native``  — the decoders' C++ state machines (``tslstream.cc``).
+* ``runtime`` — ``PushResampler`` and the CLIs' streaming helpers;
+                ``runtime.native`` builds ``native/`` with g++ at first use.
 * ``cli``     — ``pipeline-torch`` (file-capture mode), ``resampler-torch``
                 and ``decoder-torch``.
 * ``kernels`` — builds ``csrc/*.cu`` with ``nvcc`` at first use.
-* ``utils``   — conversion of plans, chain state and stream state to and
-                from the JAX package's.
+* ``utils``   — config, IQ, filter design and JSON output, and conversion
+                of plans, chain state and stream state to and from the JAX
+                package's.
+* ``testing`` — the protocol generators and synthetic captures.
 
-The package imports torch and numpy, never jax: the protocol decoders,
-signal generators and config/IQ utilities are reused from the JAX package's
-jax-free modules.
+The package imports torch and numpy and nothing of jax or ``tsl_sdr_tpu``:
+what it needs of the JAX package's jax-free modules it keeps as its own
+copy, under the same module name.
 """
+
+__version__ = "0.1.0"

@@ -6,7 +6,7 @@ Same flags as ``decoder-tpu``: ``-m {flex,pocsag,ais} -I interp -D decim
 [-o out.json] [-c] [--nmea FILE] [--nmea-channel A|B] [--fast] input``,
 plus ``--device``. Reads int16 PCM from a file or FIFO, polyphase-resamples
 to the protocol rate on the device, optionally DC-blocks, runs the
-protocol state machine (the JAX package's jax-free decoders) and emits one
+protocol state machine (``models.{flex,pocsag,ais}``) and emits one
 JSON object per message.
 
     decoder-torch -m flex -I 16 -D 25 -F etc/flex_16_25.json -o out.json in.pcm
@@ -23,7 +23,7 @@ PROG = "decoder-torch"
 
 
 def build_argparser():
-    from tsl_sdr_tpu.cli import cli_version
+    from tsl_sdr_tpu_torch.cli import cli_version
 
     p = argparse.ArgumentParser(prog=PROG, description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -58,17 +58,17 @@ def build_argparser():
 
 
 def _protocol(mode: str, freq: int):
-    from tsl_sdr_tpu.utils import jsonout
+    from tsl_sdr_tpu_torch.utils import jsonout
 
     if mode == "flex":
-        from tsl_sdr_tpu.models.flex import FlexDecoder
+        from tsl_sdr_tpu_torch.models.flex import FlexDecoder
 
         return FlexDecoder(freq_hz=freq), jsonout.flex_message_json
     if mode == "pocsag":
-        from tsl_sdr_tpu.models.pocsag import PocsagDecoder
+        from tsl_sdr_tpu_torch.models.pocsag import PocsagDecoder
 
         return PocsagDecoder(), jsonout.pocsag_message_json
-    from tsl_sdr_tpu.models.ais import AisDecoder
+    from tsl_sdr_tpu_torch.models.ais import AisDecoder
 
     return AisDecoder(), jsonout.ais_message_json
 
@@ -80,7 +80,7 @@ def main(argv=None):
 
     install_sigterm_as_interrupt()
 
-    from tsl_sdr_tpu.utils.config import ConfigError, load_lpf_coeffs
+    from tsl_sdr_tpu_torch.utils.config import ConfigError, load_lpf_coeffs
     from tsl_sdr_tpu_torch.models.resampler import ResamplerChain
     from tsl_sdr_tpu_torch.runtime.stream import (PushResampler,
                                                   StreamCounters,
@@ -105,7 +105,7 @@ def main(argv=None):
     if args.nmea is not None:
         # opened only after the config validated: a bad config must not
         # truncate an existing NMEA feed file
-        from tsl_sdr_tpu.models.ais import NmeaEmitter
+        from tsl_sdr_tpu_torch.models.ais import NmeaEmitter
 
         nmea_out = sys.stdout if args.nmea == "-" else open(args.nmea, "w")
         proto.packet_hook = NmeaEmitter(nmea_out, channel=args.nmea_channel)
@@ -142,6 +142,8 @@ def main(argv=None):
     finally:
         counters.crc_rejects = getattr(proto, "crc_rejects", 0)
         print(f"{PROG}: {counters.summary()}", file=sys.stderr)
+        tier = "native" if proto._nat is not None else "numpy"
+        print(f"{PROG}: decoder tier {tier}", file=sys.stderr)
         if out is not sys.stdout:
             out.close()
         if nmea_out is not None and nmea_out is not sys.stdout:

@@ -69,10 +69,10 @@ def main(argv=None):
             print(f"{PROG}: {flag} is {NOT_PORTED}", file=sys.stderr)
             return 2
 
-    from tsl_sdr_tpu.utils import iq as iqio
-    from tsl_sdr_tpu.utils.config import (ConfigError, MultifmConfig,
-                                          load_config)
-    from tsl_sdr_tpu.utils.jsonout import message_to_json
+    from tsl_sdr_tpu_torch.utils import iq as iqio
+    from tsl_sdr_tpu_torch.utils.config import (ConfigError, MultifmConfig,
+                                                load_config)
+    from tsl_sdr_tpu_torch.utils.jsonout import message_to_json
     from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
 
     try:
@@ -112,7 +112,8 @@ def main(argv=None):
             print(f"{PROG}: --nmea needs at least one ais channel",
                   file=sys.stderr)
             return 2
-        from tsl_sdr_tpu.models.ais import NmeaEmitter, aivdm_channel_for_freq
+        from tsl_sdr_tpu_torch.models.ais import (NmeaEmitter,
+                                                  aivdm_channel_for_freq)
 
         nmea_out = sys.stdout if args.nmea == "-" else open(args.nmea, "w")
         ais_hook = NmeaEmitter(nmea_out, channel=aivdm_channel_for_freq)
@@ -174,6 +175,8 @@ def main(argv=None):
     print(f"{PROG}: {n_samples} samples, {len(specs)} channels, {n_msgs} "
           f"messages in {dt:.2f}s ({n_samples / max(dt, 1e-9) / 1e6:.1f} "
           "Msps)", file=sys.stderr)
+    print(f"{PROG}: decoder tier {' '.join(sorted(pipe.decoder_tiers))}",
+          file=sys.stderr)
     return 0
 
 

@@ -19,7 +19,7 @@ PROG = "resampler-torch"
 
 
 def build_argparser():
-    from tsl_sdr_tpu.cli import cli_version
+    from tsl_sdr_tpu_torch.cli import cli_version
 
     p = argparse.ArgumentParser(prog=PROG, description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -46,7 +46,7 @@ def main(argv=None):
 
     install_sigterm_as_interrupt()
 
-    from tsl_sdr_tpu.utils.config import ConfigError, load_lpf_coeffs
+    from tsl_sdr_tpu_torch.utils.config import ConfigError, load_lpf_coeffs
     from tsl_sdr_tpu_torch.models.resampler import ResamplerChain
     from tsl_sdr_tpu_torch.runtime.stream import (PushResampler,
                                                   StreamCounters,

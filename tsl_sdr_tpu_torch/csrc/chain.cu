@@ -17,17 +17,31 @@
 // polynomial atan2 of the TPU kernel, + omega, wrap to (-pi, pi], the
 // zero-power guard and trunc(phi / pi * 16384).
 //
-// What bounds it on the H100: integer issue. At the 8-channel pager width
-// (ROW=128, U=1218, HC=16) an output row costs 1,218 x 32 int32
-// multiply-adds against 256 input bytes and 32 output bytes, two orders of
-// magnitude above the card's bytes-per-operation balance, and the tensor
-// cores take no int16 operands. How the design responds: the accumulation
-// is exact int32 IMAD on the CUDA cores (the XLA tier's arithmetic, no
-// float splitting); each tile stages its input rows once in shared memory
-// with 16-byte loads; each thread keeps RPT rows of accumulators in
-// registers so one tap load feeds RPT multiply-adds; the taps (80 KiB here,
-// 224 KiB at 8 channels, 128 taps, decimate-by-40) are read through L1
-// rather than staged, so any width fits.
+// What bounds it on the H100: operations. At the 8-channel pager width
+// (ROW=128, U=1218, HC=16) a 4,177,920-sample block is 65,280 rows x 1,218
+// x 32 = 2.54 G int16 multiply-adds against 10.4 MB of input and output:
+// 10.3 us at the int8 tensor-core peak with four byte products a
+// multiply-add, 3.1 us of memory. On the CUDA cores (int32 IMAD: 132 SMs
+// x 64 lanes x ~1.98 GHz) it cannot beat ~150 us.
+//
+// How the design responds: the FIR runs on the int8 tensor cores by the
+// exact split of imma_split.cuh. It is a Toeplitz product: with X the
+// tile's staged stream as a plain [rows, ROW] matrix, the A operand at
+// output row r and tap u = ROW*q + v is X[r + q, v], so
+//     acc[r0:r0+16, :] = sum_q X[r0+q : r0+q+16, :] @ W[ROW*q : ROW*q+ROW, :]
+// (the TPU kernel's shifted dots) is a run of 16x32 A tiles read by
+// ldmatrix from one staged matrix at row offsets q, never expanded. Each
+// tile stages its rows [r0 - 1, r0 + TR + cr) once, split into high/low
+// byte planes with 16-byte loads, at a row pitch of ROW + 16 bytes (at a
+// multiple of 128 bytes ldmatrix's 8 rows would share 4 banks). The split
+// taps (fragment order, U rounded up to 32) are staged in shared memory
+// too when they fit (80 KB at the pager width), else read from L2. A warp
+// owns two 16-row m-tiles and up to 4 n8 tiles, so each B fragment feeds
+// 8 IMMA products. TR + 1 (the tile's rows and its look-back row) is a
+// multiple of 16 (32 where shared memory allows: at decimation 50 a row is
+// 3,200 values and only 16 rows fit); each tile recomputes its own
+// look-back row for the FM history of its first row, so tiles run in any
+// order.
 //
 // Numerics: every float operation of the FM stage is written with an
 // explicit round-to-nearest intrinsic (no FMA contraction) in the order of
@@ -38,9 +52,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "imma_split.cuh"
+
 namespace {
 
-constexpr int kRpt = 8;        // output rows per thread
 constexpr int kThreads = 256;
 constexpr float kPi = 3.14159265358979f;       // == np.float32(np.pi)
 constexpr float kHalfPi = 1.57079632679490f;   // == np.float32(np.pi / 2)
@@ -78,31 +93,51 @@ __device__ __forceinline__ int16_t fm_pcm(float ar, float ai, float pr,
   return (int16_t)truncf(__fmul_rn(__fdiv_rn(phi, kPi), 16384.0f));
 }
 
+constexpr int kPitchPad = 16;   // bytes past ROW per staged row
+constexpr int kNtG = 4;         // n8 tiles a warp owns at a time
+constexpr int kBatch = 4;       // staging loads a thread keeps in flight
+constexpr int kSmemCap = 227 * 1024;
+
+// staged stream rows: high and low byte planes
 __host__ __device__ size_t x_bytes(int tr, int row, int cr) {
-  return (((size_t)(tr + 1 + cr) * row * sizeof(int16_t)) + 15) & ~size_t(15);
+  return 2 * (size_t)(tr + 1 + cr) * (row + kPitchPad);
 }
 
-__host__ __device__ size_t smem_bytes(int tr, int row, int cr, int hc) {
-  return x_bytes(tr, row, cr) + 2 * (size_t)(tr + 1) * hc * sizeof(float);
+__host__ __device__ size_t acc_bytes(int tr, int hc) {
+  return 2 * (size_t)(tr + 1) * hc * sizeof(float);
+}
+
+// both split tap planes: ksteps x n_tiles tiles of 256 bytes each
+__host__ __device__ size_t tap_bytes(int u_len, int hc) {
+  return 2 * (size_t)((u_len + 31) / 32) * ((2 * hc + 7) / 8) * 256;
 }
 
 // grid.x = ceil(rows / tr); tile t owns output rows [t*tr, t*tr + tr) and
 // recomputes the accumulators of row t*tr - 1 (the look-back row) for the
-// FM history of its first row.
+// FM history of its first row. stage_taps: copy the tap planes to shared
+// memory (else they are read from device memory through L2).
 __global__ void __launch_bounds__(kThreads)
 chain_fm_kernel(const int16_t* __restrict__ carry,
                 const int16_t* __restrict__ block,
-                const int16_t* __restrict__ w,
+                const uint2* __restrict__ w_hi,
+                const uint2* __restrict__ w_lo,
                 const float* __restrict__ omega,
                 const float* __restrict__ prev,
                 int16_t* __restrict__ out,
                 float* __restrict__ prev_out,
                 int rows, int row, int cr, int u_len, int hc, int nr_ch,
-                int tr) {
+                int tr, int stage_taps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int16_t* xs = reinterpret_cast<int16_t*>(smem);
+  const int pitch = row + kPitchPad;
+  const int x_rows = tr + 1 + cr;
+  uint8_t* x_hi = smem;
+  uint8_t* x_lo = smem + (size_t)x_rows * pitch;
   float* acc_re = reinterpret_cast<float*>(smem + x_bytes(tr, row, cr));
   float* acc_im = acc_re + (size_t)(tr + 1) * hc;
+  const int ksteps = (u_len + 31) / 32;
+  const int n_tiles = (2 * hc + 7) / 8;
+  const uint2* b_hi = w_hi;
+  const uint2* b_lo = w_lo;
 
   const int r0 = blockIdx.x * tr;
   // stage stream rows [r0 - 1, r0 + tr + cr): row -1 and rows past the
@@ -110,44 +145,116 @@ chain_fm_kernel(const int16_t* __restrict__ carry,
   const long long carry_vals = (long long)cr * row;
   const long long total = carry_vals + (long long)rows * row;
   const long long base = (long long)(r0 - 1) * row;
-  const int n_vec = (tr + 1 + cr) * row / 8;
-  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
-    const long long s = base + 8LL * i;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (s >= 0 && s < total) {
-      v = s < carry_vals
-          ? *reinterpret_cast<const uint4*>(carry + s)
-          : *reinterpret_cast<const uint4*>(block + (s - carry_vals));
-    }
-    reinterpret_cast<uint4*>(xs)[i] = v;
-  }
-  __syncthreads();
-
-  // accumulators of local rows 0..tr (local row 0 = stream output r0 - 1)
-  const int n_groups = (tr + 1) / kRpt;
-  const int two_hc = 2 * hc;
-  for (int item = threadIdx.x; item < n_groups * hc; item += blockDim.x) {
-    const int col = item % hc;
-    const int lr0 = (item / hc) * kRpt;
-    const int16_t* xr = xs + (size_t)lr0 * row;
-    const int16_t* wc = w + col;
-    unsigned acc_r[kRpt], acc_i[kRpt];
+  // kBatch 16-byte loads a thread in flight before any is stored
+  const int per_row = row / 8;
+  const int n_x = x_rows * per_row;
+  for (int i0 = threadIdx.x; i0 < n_x; i0 += kThreads * kBatch) {
+    uint4 v[kBatch];
 #pragma unroll
-    for (int k = 0; k < kRpt; ++k) acc_r[k] = acc_i[k] = 0u;
-    for (int u = 0; u < u_len; ++u) {
-      const int wr = __ldg(wc + (size_t)u * two_hc);
-      const int wi = __ldg(wc + (size_t)u * two_hc + hc);
-#pragma unroll
-      for (int k = 0; k < kRpt; ++k) {
-        const int xv = xr[k * row + u];
-        acc_r[k] += (unsigned)(xv * wr);   // int32 wrap, as the reference
-        acc_i[k] += (unsigned)(xv * wi);
+    for (int u = 0; u < kBatch; ++u) {
+      const long long s = base + 8LL * (i0 + u * kThreads);
+      v[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (i0 + u * kThreads < n_x && s >= 0 && s < total) {
+        v[u] = s < carry_vals
+            ? __ldg(reinterpret_cast<const uint4*>(carry + s))
+            : __ldg(reinterpret_cast<const uint4*>(block + (s - carry_vals)));
       }
     }
 #pragma unroll
-    for (int k = 0; k < kRpt; ++k) {
-      acc_re[(lr0 + k) * hc + col] = __int2float_rn((int)acc_r[k]);
-      acc_im[(lr0 + k) * hc + col] = __int2float_rn((int)acc_i[k]);
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < n_x) {
+        uint2 hi, lo;
+        imma::split8(v[u], hi, lo);
+        const size_t o = (size_t)(i / per_row) * pitch + 8 * (i % per_row);
+        *reinterpret_cast<uint2*>(x_hi + o) = hi;
+        *reinterpret_cast<uint2*>(x_lo + o) = lo;
+      }
+    }
+  }
+  if (stage_taps) {
+    uint4* t_hi = reinterpret_cast<uint4*>(
+        smem + x_bytes(tr, row, cr) + acc_bytes(tr, hc));
+    const int n16 = ksteps * n_tiles * 16;   // 16-byte words per plane
+    uint4* t_lo = t_hi + n16;
+    const uint4* g_hi = reinterpret_cast<const uint4*>(w_hi);
+    const uint4* g_lo = reinterpret_cast<const uint4*>(w_lo);
+    for (int i0 = threadIdx.x; i0 < n16; i0 += kThreads * kBatch) {
+      uint4 h[kBatch], l[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = min(i0 + u * kThreads, n16 - 1);
+        h[u] = __ldg(g_hi + i);
+        l[u] = __ldg(g_lo + i);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kThreads;
+        if (i < n16) {
+          t_hi[i] = h[u];
+          t_lo[i] = l[u];
+        }
+      }
+    }
+    b_hi = reinterpret_cast<const uint2*>(t_hi);
+    b_lo = reinterpret_cast<const uint2*>(t_lo);
+  }
+  __syncthreads();
+
+  // accumulators of local rows 0..tr (local row 0 = stream output r0 - 1):
+  // work items are (pair of 16-row m-tiles, group of kNtG n8 tiles); the
+  // last pair has one m-tile when (tr + 1) / 16 is odd
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_pairs = (tr + 1 + 16) / 32;
+  const int n_groups = (n_tiles + kNtG - 1) / kNtG;
+  const int ks_per_row = row / 32;
+  for (int item = warp; item < n_pairs * n_groups; item += kThreads / 32) {
+    const int lr0 = (item / n_groups) * 32;
+    const bool two = lr0 + 16 < tr + 1;
+    const int lr1 = two ? lr0 + 16 : lr0;   // a repeat of tile 0 if absent
+    const int nt0 = (item % n_groups) * kNtG;
+    imma::Acc acc[2][kNtG];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < kNtG; ++j) imma::zero(acc[h][j]);
+    }
+    int ks = 0;
+    for (int q = 0; q <= cr && ks < ksteps; ++q) {
+      for (int kk = 0; kk < ks_per_row && ks < ksteps; ++kk, ++ks) {
+        uint32_t ah0[4], al0[4], ah1[4], al1[4];
+        imma::load_a(ah0, x_hi, pitch, lr0 + q, 32 * kk);
+        imma::load_a(al0, x_lo, pitch, lr0 + q, 32 * kk);
+        imma::load_a(ah1, x_hi, pitch, lr1 + q, 32 * kk);
+        imma::load_a(al1, x_lo, pitch, lr1 + q, 32 * kk);
+#pragma unroll
+        for (int j = 0; j < kNtG; ++j) {
+          if (nt0 + j < n_tiles) {
+            const size_t f = ((size_t)ks * n_tiles + nt0 + j) * 32 + lane;
+            const uint2 bh = b_hi[f], bl = b_lo[f];
+            imma::mma_split(acc[0][j], ah0, al0, bh, bl);
+            imma::mma_split(acc[1][j], ah1, al1, bh, bl);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && !two) break;
+#pragma unroll
+      for (int j = 0; j < kNtG; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int lr = lr0 + 16 * h + (lane >> 2) + (i >> 1) * 8;
+          const int c = (nt0 + j) * 8 + (lane & 3) * 2 + (i & 1);
+          const float f = __int2float_rn((int)imma::combine(acc[h][j], i));
+          if (c < hc) {
+            acc_re[lr * hc + c] = f;
+          } else if (c < 2 * hc) {
+            acc_im[lr * hc + c - hc] = f;
+          }
+        }
+      }
     }
   }
   __syncthreads();
@@ -182,29 +289,47 @@ chain_fm_kernel(const int16_t* __restrict__ carry,
 
 }  // namespace
 
-// carry [cr*row] int16, block [rows*row] int16, w [u_len, 2*hc] int16,
-// omega [hc] f32, prev [2, nr_ch] f32 -> out [rows, hc] int16,
-// prev_out [2, nr_ch] f32. Needs (tr + 1) % 8 == 0, row % 8 == 0,
-// u_len <= (cr + 1) * row and 16-byte aligned carry/block pointers.
+// carry [cr*row] int16, block [rows*row] int16, w_hi/w_lo the split taps
+// [ceil(u_len/32), ceil(2*hc/8), 32, 8] bytes (ops/imma_split.py
+// fragment_planes of the [u_len, 2*hc] tap matrix), omega [hc] f32, prev
+// [2, nr_ch] f32 -> out [rows, hc] int16, prev_out [2, nr_ch] f32. Needs
+// (tr + 1) % 16 == 0, row % 32 == 0, u_len <= min((cr + 1) * row, 32768)
+// and 16-byte aligned carry/block pointers.
 extern "C" int tsl_chain_fm(const void* carry, const void* block,
-                            const void* w, const void* omega,
-                            const void* prev, void* out, void* prev_out,
-                            int rows, int row, int cr, int u_len, int hc,
-                            int nr_ch, int tr, void* stream) {
-  if (rows <= 0 || tr <= 0 || (tr + 1) % kRpt || row % 8 ||
-      u_len > (cr + 1) * row || nr_ch > hc) {
+                            const void* w_hi, const void* w_lo,
+                            const void* omega, const void* prev, void* out,
+                            void* prev_out, int rows, int row, int cr,
+                            int u_len, int hc, int nr_ch, int tr,
+                            void* stream) {
+  if (rows <= 0 || tr <= 0 || (tr + 1) % 16 || row <= 0 || row % 32 ||
+      u_len <= 0 || u_len > (cr + 1) * row || u_len > 32768 || nr_ch > hc ||
+      (uintptr_t)carry % 16 || (uintptr_t)block % 16) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = smem_bytes(tr, row, cr, hc);
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_fm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  size_t smem = x_bytes(tr, row, cr) + acc_bytes(tr, hc);
+  if (smem > kSmemCap) return (int)cudaErrorInvalidValue;
+  const int stage_taps = smem + tap_bytes(u_len, hc) <= kSmemCap ? 1 : 0;
+  if (stage_taps) smem += tap_bytes(u_len, hc);
+  // raise the kernel's shared-memory ceiling once per device (the
+  // attribute applies to the current device only), not on every launch
+  constexpr int kMaxDevices = 64;
+  static int smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || (int)smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(chain_fm_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) smem_set[dev] = (int)smem;
+  }
   const int grid = (rows + tr - 1) / tr;
   chain_fm_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int16_t*)carry, (const int16_t*)block, (const int16_t*)w,
-      (const float*)omega, (const float*)prev, (int16_t*)out,
-      (float*)prev_out, rows, row, cr, u_len, hc, nr_ch, tr);
+      (const int16_t*)carry, (const int16_t*)block, (const uint2*)w_hi,
+      (const uint2*)w_lo, (const float*)omega, (const float*)prev,
+      (int16_t*)out, (float*)prev_out, rows, row, cr, u_len, hc, nr_ch, tr,
+      stage_taps);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,7 @@ The kernels have a plain C interface (pointers, ints and the CUDA stream),
 so the library builds in seconds without PyTorch's headers and binds with
 ctypes. It is built at first use into ``build/tsl_sdr_tpu_torch/`` beside
 the package (one ``nvcc`` per source, all started together, then one link),
-and rebuilt whenever a hash of the sources and flags changes.
+and rebuilt whenever a hash of the sources, headers and flags changes.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises on anything but success.
 """
@@ -33,7 +33,7 @@ _L = ctypes.c_longlong
 # C signatures: every pointer (and the stream) as c_void_p — ctypes would
 # otherwise pass a Python int as a 32-bit int and cut the pointer
 SIGNATURES = {
-    "tsl_chain_fm": [_P, _P, _P, _P, _P, _P, _P,
+    "tsl_chain_fm": [_P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _P],
     "tsl_row_resample": [_P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _L, _I, _I, _P],
@@ -62,7 +62,7 @@ def _sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):   # sources and shared headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()

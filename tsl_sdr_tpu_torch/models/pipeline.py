@@ -17,7 +17,8 @@ Every device stage of a block runs in one call, :meth:`_SizedProgram.dev_step`:
 The host uploads each block from pinned memory, starts the device->host
 copies of the small gated outputs as soon as the block is queued, keeps
 ``inflight_depth`` blocks in flight, and drains the oldest into the
-POCSAG/FLEX/AIS decoders (the JAX package's own numpy modules). The egress
+POCSAG/FLEX/AIS decoders (``models.{pocsag,flex,ais}``, each on its native
+C++ state machine). The egress
 buffers keep the JAX engine's layout byte for byte, so the drain logic is
 the same code.
 
@@ -36,12 +37,16 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from tsl_sdr_tpu.utils.filter_design import design_rational_resampler_filter
-from tsl_sdr_tpu.utils.iq import WIRE_DTYPES, WIRE_ZERO, widen_iq_bytes
+from tsl_sdr_tpu_torch.models.ais import AisDecoder
 from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
+from tsl_sdr_tpu_torch.models.flex import FlexDecoder
+from tsl_sdr_tpu_torch.models.pocsag import PocsagDecoder
 from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
 from tsl_sdr_tpu_torch.ops import polyphase, q14, sync_prefilter
 from tsl_sdr_tpu_torch.ops.q14 import to_int16
+from tsl_sdr_tpu_torch.utils.filter_design import (
+    design_rational_resampler_filter)
+from tsl_sdr_tpu_torch.utils.iq import WIRE_DTYPES, WIRE_ZERO, widen_iq_bytes
 
 PROTOCOL_RATES = {"pocsag": 38_400, "flex": 16_000, "ais": 48_000}
 # largest resampler interpolation/decimation term a channel may need
@@ -54,16 +59,10 @@ _TORCH_WIRE = {np.dtype(np.int16): torch.int16,
 
 def _make_decoder(protocol: str, freq_hz: int, ais_packet_hook=None):
     if protocol == "pocsag":
-        from tsl_sdr_tpu.models.pocsag import PocsagDecoder
-
         return PocsagDecoder()
     if protocol == "flex":
-        from tsl_sdr_tpu.models.flex import FlexDecoder
-
         return FlexDecoder(freq_hz=freq_hz)
     if protocol == "ais":
-        from tsl_sdr_tpu.models.ais import AisDecoder
-
         hook = None
         if ais_packet_hook is not None:
             # pipeline hook contract: callable(packet, center_freq_hz)
@@ -339,6 +338,13 @@ class ReceivePipeline:
                 spec.protocol, spec.center_freq_hz, self._ais_packet_hook))
 
         self._setup_stream(block_size)
+
+    @property
+    def decoder_tiers(self) -> set:
+        """{"native"} when every protocol decoder runs its C++ state
+        machine; "numpy" appears for any built with ``native=False``."""
+        return {"native" if d._nat is not None else "numpy"
+                for d in self._decoders if d is not None}
 
     # -- streaming engine ---------------------------------------------------
 

@@ -121,7 +121,7 @@ class ResamplerChain:
         if plan.k_row:
             out = row_resample(pcm[None, :c_len], pcm[None, c_len:c_len
                                                         + n_main],
-                               taps.w0, taps.w1, row_in=plan.row_in,
+                               taps, row_in=plan.row_in,
                                out=self._out).reshape(-1)
         else:
             # whole frames covering every full block's windows; zeros past

@@ -22,45 +22,59 @@ import numpy as np
 import torch
 
 from tsl_sdr_tpu_torch.kernels import build
-from tsl_sdr_tpu_torch.ops import fm, packed_fir
+from tsl_sdr_tpu_torch.ops import fm, imma_split, packed_fir
 from tsl_sdr_tpu_torch.ops.packed_fir import PackedFirPlan
 
-_SMEM_CAP = 200 * 1024   # of the 227 KB a block may use
-_RPT = 8                 # output rows per thread (kRpt in chain.cu)
+_SMEM_CAP = 227 * 1024   # what a block may use (kSmemCap in chain.cu)
+_PITCH_PAD = 16          # bytes past ROW per staged row (kPitchPad)
 
 
 class ChainTaps:
-    """Device-resident constants of one plan: the int16 tap matrix the
-    kernel reads, its float64 chunk stack for the plain version, and the
-    per-column FM rotation."""
+    """Device-resident constants of one plan: the int16 tap matrix split
+    into the high/low byte planes the kernel reads (B-fragment order, see
+    :mod:`tsl_sdr_tpu_torch.ops.imma_split`), its float64 chunk stack for
+    the plain version, and the per-column FM rotation."""
 
     def __init__(self, plan: PackedFirPlan, omega_reduced, *, device):
         self.plan = plan
-        self.w_i16 = torch.from_numpy(
-            packed_fir.tap_matrix_i16(plan)).to(device)
+        hi, lo = imma_split.fragment_planes(packed_fir.tap_matrix_i16(plan))
+        self.w_hi = torch.from_numpy(hi).to(device)
+        self.w_lo = torch.from_numpy(lo).to(device)
         self.w_f64 = torch.from_numpy(
             np.stack(plan.w_chunks_i16).astype(np.float64)).to(device)
         om = np.asarray(omega_reduced, np.float32)
         self.omega_c = torch.from_numpy(om.copy()).to(device)
         self.omega_row = torch.from_numpy(np.tile(om, plan.opr)).to(device)
-        self.tile_rows = tile_rows(plan.row, plan.cr_rows, plan.halfcols)
+        self.tile_rows = tile_rows(plan.row, plan.cr_rows, plan.halfcols,
+                                   plan.win)
 
 
-def tile_rows(row: int, cr: int, hc: int) -> int:
-    """Rows per kernel block: about 256 (row-group, column) work items,
-    ``tr + 1`` a multiple of the 8 rows a thread owns, within the shared
-    memory a block may use (input rows + two f32 accumulator planes)."""
-    g = max(1, 256 // hc)
-    while True:
-        tr = _RPT * g - 1
-        x_bytes = -(-(tr + 1 + cr) * row * 2 // 16) * 16
-        smem = x_bytes + 2 * (tr + 1) * hc * 4
-        if smem <= _SMEM_CAP:
-            return tr
-        if g == 1:
-            raise ValueError(f"no tile fits in shared memory at row={row}, "
-                             f"cr={cr}, halfcols={hc}")
-        g //= 2
+def smem_bytes(tr: int, row: int, cr: int, hc: int) -> int:
+    """Shared memory of a kernel block without the taps: the staged rows'
+    high and low byte planes and two f32 accumulator planes (``x_bytes +
+    acc_bytes`` in chain.cu)."""
+    return 2 * (tr + 1 + cr) * (row + _PITCH_PAD) + 2 * (tr + 1) * hc * 4
+
+
+def tap_bytes(u_len: int, hc: int) -> int:
+    """Both split tap planes (``tap_bytes`` in chain.cu)."""
+    return 2 * -(-u_len // 32) * -(-2 * hc // 8) * 256
+
+
+def tile_rows(row: int, cr: int, hc: int, u_len: int) -> int:
+    """Rows per kernel block: ``tr + 1`` (the tile and its look-back row) a
+    multiple of the 16 rows of an m-tile, at most 256 (16 m-tiles, two per
+    warp), the largest that fits in shared memory beside the staged taps,
+    else the largest that fits without them."""
+    for with_taps in (True, False):
+        for rows in range(256, 0, -16):
+            need = smem_bytes(rows - 1, row, cr, hc)
+            if with_taps:
+                need += tap_bytes(u_len, hc)
+            if need <= _SMEM_CAP:
+                return rows - 1
+    raise ValueError(f"no tile fits in shared memory at row={row}, "
+                     f"cr={cr}, halfcols={hc}")
 
 
 def chain_fm(taps: ChainTaps, carry_vals: torch.Tensor, prev: torch.Tensor,
@@ -80,9 +94,9 @@ def chain_fm(taps: ChainTaps, carry_vals: torch.Tensor, prev: torch.Tensor,
     _check(prev, torch.float32, (2, plan.nr_channels), "prev")
     for name, t in (("block", block), ("carry_vals", carry_vals),
                     ("prev", prev)):
-        if t.device != taps.w_i16.device:
+        if t.device != taps.w_hi.device:
             raise ValueError(f"{name} on {t.device}, taps on "
-                             f"{taps.w_i16.device}")
+                             f"{taps.w_hi.device}")
     for name, t in (("block", block), ("carry_vals", carry_vals)):
         if t.data_ptr() % 16:   # the kernel stages rows with 16-byte loads
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -90,14 +104,18 @@ def chain_fm(taps: ChainTaps, carry_vals: torch.Tensor, prev: torch.Tensor,
     if rows == 0 or block.numel() % plan.row:
         raise ValueError(f"block of {block.numel()} values is not a whole, "
                          f"nonzero number of {plan.row}-value rows")
+    if plan.win > imma_split.MAX_DEPTH:
+        raise ValueError(f"{plan.win} taps a row exceed the split's depth "
+                         f"limit {imma_split.MAX_DEPTH}")
     lib = build.load()
     out = torch.empty((rows, plan.halfcols), dtype=torch.int16,
                       device=block.device)
     prev_out = torch.empty_like(prev)
     stream = torch.cuda.current_stream(block.device).cuda_stream
     err = lib.tsl_chain_fm(
-        carry_vals.data_ptr(), block.data_ptr(), taps.w_i16.data_ptr(),
-        taps.omega_row.data_ptr(), prev.data_ptr(), out.data_ptr(),
+        carry_vals.data_ptr(), block.data_ptr(), taps.w_hi.data_ptr(),
+        taps.w_lo.data_ptr(), taps.omega_row.data_ptr(), prev.data_ptr(),
+        out.data_ptr(),
         prev_out.data_ptr(), rows, plan.row, plan.cr_rows, plan.win,
         plan.halfcols, plan.nr_channels, taps.tile_rows, stream)
     build.check(err, "tsl_chain_fm")

@@ -1,0 +1,88 @@
+"""The int8 split that takes exact int16 products to the tensor cores.
+
+Hopper's tensor cores multiply 8-bit operands (``s8``/``u8``) into ``s32``
+sums, not 16-bit ones. An int16 splits exactly into a signed high byte and
+an unsigned low byte, ``x = 256 * hi(x) + lo(x)`` with ``hi = x >> 8``
+(arithmetic) and ``lo = x & 0xFF``, so a sum of int16 products is
+
+    sum x*w = 65536 * HH + 256 * (HL + LH) + LL     (mod 2**32)
+
+over the four cross sums ``HH = sum hi(x)*hi(w)`` (s8 x s8), ``HL = sum
+hi(x)*lo(w)`` (s8 x u8), ``LH = sum lo(x)*hi(w)`` (u8 x s8) and ``LL = sum
+lo(x)*lo(w)`` (u8 x u8), each an ``mma.sync ... m16n8k32`` on the card
+(``csrc/imma_split.cuh``). Recombined in uint32 the result is the wrapped
+int32 sum bit for bit. No partial overflows ``s32`` while the depth is at
+most :data:`MAX_DEPTH` (``255 * 255`` a term in LL, ``2 * 128 * 255`` in
+HL + LH); past it the partials would still wrap to the same result, but
+the kernels refuse such depths rather than rely on it.
+
+Taps are split once, at plan time, into zero-padded high and low planes
+laid out for the B operand of ``m16n8k32`` (:func:`fragment_planes`): for
+a ``[K, N]`` tap matrix, 32-deep by 8-wide tile ``(kt, nt)`` is 32 lanes
+of 8 bytes, lane ``4*g + t`` holding rows ``32*kt + 4*t + (0..3)`` and
+``32*kt + 16 + 4*t + (0..3)`` of column ``8*nt + g``. A warp then reads
+each tile as one coalesced 256-byte load.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MAX_DEPTH = 32_768   # partial sums stay inside s32 up to this depth
+K_STEP = 32          # mma.sync m16n8k32: depth of one product
+N_TILE = 8           # and its width
+
+
+def split_i16(x):
+    """int16 -> (signed high byte, unsigned low byte); numpy or torch."""
+    if isinstance(x, torch.Tensor):
+        x = x.to(torch.int16)
+        return (x >> 8).to(torch.int8), (x & 0xFF).to(torch.uint8)
+    x = np.asarray(x, np.int16)
+    return (x >> 8).astype(np.int8), (x & 0xFF).astype(np.uint8)
+
+
+def fragment_planes(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """int16 ``[K, N]`` taps -> (high, low) byte planes ``[KT, NT, 32, 8]``
+    (``KT = ceil(K / 32)``, ``NT = ceil(N / 8)``), zero-padded, each tile in
+    the lane order of the ``m16n8k32`` B fragment."""
+    w = np.asarray(w, np.int16)
+    k, n = w.shape
+    kt, nt = -(-k // K_STEP), -(-n // N_TILE)
+    padded = np.zeros((kt * K_STEP, nt * N_TILE), np.int16)
+    padded[:k, :n] = w
+    planes = []
+    for plane in split_i16(padded):
+        # rows 32*kt + 16*half + 4*t + i, column 8*nt + g
+        p = plane.view(np.uint8).reshape(kt, 2, 4, 4, nt, 8)
+        # -> [kt, nt, g, t, half, i]: lane 4*g + t, byte 4*half + i
+        planes.append(np.ascontiguousarray(
+            p.transpose(0, 4, 5, 2, 1, 3).reshape(kt, nt, 32, 8)))
+    return planes[0], planes[1]
+
+
+def unfragment(hi: np.ndarray, lo: np.ndarray, k: int, n: int) -> np.ndarray:
+    """Inverse of :func:`fragment_planes`: the ``[k, n]`` int16 taps."""
+    kt, nt = hi.shape[:2]
+    w = []
+    for plane in (hi, lo):
+        p = np.asarray(plane, np.uint8).reshape(kt, nt, 8, 4, 2, 4)
+        w.append(p.transpose(0, 4, 3, 5, 1, 2).reshape(kt * K_STEP,
+                                                       nt * N_TILE))
+    full = w[0].view(np.int8).astype(np.int32) * 256 + w[1].astype(np.int32)
+    return full[:k, :n].astype(np.int16)
+
+
+def split_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int16 ``[M, K]`` @ int16 ``[K, N]`` -> the wrapped int32 sums, by
+    the split: four cross sums of byte products (each exact in int64,
+    as they are in s32 for K <= MAX_DEPTH), recombined mod 2**32. The
+    kernels' arithmetic, written plainly."""
+    xh, xl = (t.to(torch.int64) for t in split_i16(x))
+    wh, wl = (t.to(torch.int64) for t in split_i16(w))
+    hh = xh @ wh
+    mid = xh @ wl + xl @ wh
+    ll = xl @ wl
+    acc = ((hh << 16) + (mid << 8) + ll) & 0xFFFFFFFF
+    return torch.where(acc >= 2 ** 31, acc - 2 ** 32, acc).to(torch.int32)

@@ -33,11 +33,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tsl_sdr_tpu_torch.ops import q14
+from tsl_sdr_tpu_torch.ops import imma_split, q14
 from tsl_sdr_tpu_torch.ops.frame_resampler import FrameTaps, frame_resample
 from tsl_sdr_tpu_torch.ops.frame_resampler import frame_taps
 from tsl_sdr_tpu_torch.ops.packed_fir import next_carry
-from tsl_sdr_tpu_torch.ops.row_resampler import row_resample
+from tsl_sdr_tpu_torch.ops.row_resampler import RowTaps, row_resample
 
 
 class ResamplerPlan(NamedTuple):
@@ -166,21 +166,22 @@ def make_resampler_plan(fir_coeff_q14, interpolate: int, decimate: int,
     )
 
 
-class RowTaps(NamedTuple):
-    """A packed-row plan's tap matrices on the device."""
-
-    w0: torch.Tensor          # [ROW_IN, K_ROW] int16
-    w1: torch.Tensor | None   # [sp, K_ROW] int16, or None
-
-
 def row_taps(plan: ResamplerPlan, *, device) -> RowTaps:
+    """The plan's packed-row taps on ``device``: ``w0``/``w1`` as the plan
+    holds them, and the split planes of the kernel, built from the row's
+    taps followed by the plan's real spill (``plan.spill`` rows, not the
+    128-padded ``w_spill_i16``), zero-padded to a multiple of 32 rows."""
     if not plan.k_row:
         raise ValueError("plan has no packed-row form (k_row == 0); "
                          "use plan_taps")
     w1 = plan.w_spill_i16
+    full = plan.w_row_i16 if w1 is None else np.concatenate(
+        [plan.w_row_i16, w1[:plan.spill]])
+    hi, lo = imma_split.fragment_planes(full)
     return RowTaps(
         torch.from_numpy(np.ascontiguousarray(plan.w_row_i16)).to(device),
-        None if w1 is None else torch.from_numpy(w1).to(device))
+        None if w1 is None else torch.from_numpy(w1).to(device),
+        torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device))
 
 
 def plan_taps(plan: ResamplerPlan, *, device) -> RowTaps | FrameTaps:
@@ -223,8 +224,7 @@ def resample_step(plan: ResamplerPlan, carry: torch.Tensor,
         if plan.carry_len != plan.spill:
             raise ValueError(f"packed-row plans carry exactly the spill "
                              f"({plan.carry_len} != {plan.spill})")
-        res = row_resample(carry, block, taps.w0, taps.w1,
-                           row_in=plan.row_in, out=out)
+        res = row_resample(carry, block, taps, row_in=plan.row_in, out=out)
     else:
         res = frame_resample(carry, block, taps,
                              frames=plan.block_out // plan.i_rep, out=out)

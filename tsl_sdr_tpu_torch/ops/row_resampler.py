@@ -12,47 +12,61 @@ the stream's end), summed in wrapping int32, and writes them as
 ``|acc|`` exceeds 2^24). On a CUDA tensor it launches
 ``csrc/row_resampler.cu`` (which replaces the TPU kernel
 ``tsl_sdr_tpu/ops/pallas_resampler.py`` ``_row_kernel_v2``/``_row_call_v2``
-and the XLA product of ``tsl_sdr_tpu/ops/polyphase.py:304-345``); on a CPU
-tensor it runs :func:`row_resample_plain`. See the source note in
+and the XLA product of ``tsl_sdr_tpu/ops/polyphase.py:304-345``; the
+products run on the int8 tensor cores through the exact split of
+:mod:`tsl_sdr_tpu_torch.ops.imma_split`); on a CPU tensor it runs
+:func:`row_resample_plain`. See the source note in
 ``csrc/row_resampler.cu`` for what bounds the kernel and how its design
 responds.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from tsl_sdr_tpu_torch.kernels import build
-from tsl_sdr_tpu_torch.ops import q14
+from tsl_sdr_tpu_torch.ops import imma_split, q14
 
 OUT_MODES = {"f32": (0, torch.float32), "q14": (1, torch.int16)}
 
 
-def row_resample(carry: torch.Tensor, block: torch.Tensor, w0: torch.Tensor,
-                 w1: torch.Tensor | None, *, row_in: int,
-                 out: str = "f32") -> torch.Tensor:
-    """carry [G, n_carry] int16, block [G, n] int16, w0 [row_in, k_row]
-    int16, w1 [sp, k_row] int16 or None -> [G, n // row_in, k_row] float32
-    (``out="f32"``) or int16 (``out="q14"``)."""
+class RowTaps(NamedTuple):
+    """A packed-row plan's taps on the device (built by
+    :func:`tsl_sdr_tpu_torch.ops.polyphase.row_taps`)."""
+
+    w0: torch.Tensor          # [ROW_IN, K_ROW] int16 (the plain version's)
+    w1: torch.Tensor | None   # [sp_pad, K_ROW] int16, or None
+    # [w0; w1[:spill]] zero-padded to a multiple of 32 rows and split into
+    # high/low byte planes [K_PAD/32, K_ROW/8, 32, 8] uint8 (the kernel's)
+    w_hi: torch.Tensor
+    w_lo: torch.Tensor
+
+
+def row_resample(carry: torch.Tensor, block: torch.Tensor, taps: RowTaps, *,
+                 row_in: int, out: str = "f32") -> torch.Tensor:
+    """carry [G, n_carry] int16, block [G, n] int16, ``taps`` of the plan
+    -> [G, n // row_in, k_row] float32 (``out="f32"``) or int16
+    (``out="q14"``)."""
     if out not in OUT_MODES:
         raise ValueError(f"out must be 'f32' or 'q14', not {out!r}")
     if block.device.type == "cpu":
-        return row_resample_plain(carry, block, w0, w1, row_in=row_in,
-                                  out=out)
+        return row_resample_plain(carry, block, taps, row_in=row_in, out=out)
     if block.device.type != "cuda":
         raise ValueError(f"row_resample runs on cuda or cpu, not "
                          f"{block.device}")
     g, n = block.shape
-    k_row = w0.shape[1]
-    sp = 0 if w1 is None else w1.shape[0]
+    k_tiles, n_tiles = taps.w_hi.shape[:2]
+    k_row, k_pad = 8 * n_tiles, 32 * k_tiles
     m = n // row_in
-    checks = [(block, (g, n), "block"), (carry, (g, carry.shape[1]), "carry"),
-              (w0, (row_in, k_row), "w0")]
-    if w1 is not None:
-        checks.append((w1, (sp, k_row), "w1"))
-    for t, shape, name in checks:
-        if t.dtype != torch.int16 or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected int16{list(shape)}, got "
+    checks = [(block, torch.int16, (g, n), "block"),
+              (carry, torch.int16, (g, carry.shape[1]), "carry"),
+              (taps.w_hi, torch.uint8, (k_tiles, n_tiles, 32, 8), "w_hi"),
+              (taps.w_lo, torch.uint8, (k_tiles, n_tiles, 32, 8), "w_lo")]
+    for t, dtype, shape, name in checks:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype}{list(shape)}, got "
                              f"{t.dtype}{list(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -60,14 +74,19 @@ def row_resample(carry: torch.Tensor, block: torch.Tensor, w0: torch.Tensor,
             raise ValueError(f"{name} on {t.device}, block on {block.device}")
     if m == 0:
         raise ValueError(f"block of {n} samples holds no {row_in}-sample row")
+    if k_row % 32:
+        raise ValueError(f"k_row {k_row} is not a multiple of 32")
+    if k_pad > imma_split.MAX_DEPTH:
+        raise ValueError(f"{k_pad} taps a row exceed the split's depth "
+                         f"limit {imma_split.MAX_DEPTH}")
     mode, dtype = OUT_MODES[out]
     lib = build.load()
     res = torch.empty((g, m, k_row), dtype=dtype, device=block.device)
     stream = torch.cuda.current_stream(block.device).cuda_stream
     err = lib.tsl_row_resample(
-        carry.data_ptr(), block.data_ptr(), w0.data_ptr(),
-        w0.data_ptr() if w1 is None else w1.data_ptr(), res.data_ptr(),
-        m, row_in, k_row, sp, carry.shape[1], n, g, mode, stream)
+        carry.data_ptr(), block.data_ptr(), taps.w_hi.data_ptr(),
+        taps.w_lo.data_ptr(), res.data_ptr(), m, row_in, k_row, k_pad,
+        carry.shape[1], n, g, mode, stream)
     build.check(err, "tsl_row_resample")
     if mode:
         row_resample.launches_q14 += 1
@@ -81,11 +100,12 @@ row_resample.launches_q14 = 0   # launches with out="q14"
 
 
 def row_resample_plain(carry: torch.Tensor, block: torch.Tensor,
-                       w0: torch.Tensor, w1: torch.Tensor | None, *,
-                       row_in: int, out: str = "f32") -> torch.Tensor:
-    """Plain torch version of :func:`row_resample`: float64 products (exact
-    for int16 x int16 sums of a few thousand terms), wrapped to int32,
-    then the same epilogue."""
+                       taps: RowTaps, *, row_in: int,
+                       out: str = "f32") -> torch.Tensor:
+    """Plain torch version of :func:`row_resample` on the int16 taps
+    ``w0``/``w1``: float64 products (exact for int16 x int16 sums of a few
+    thousand terms), wrapped to int32, then the same epilogue."""
+    w0, w1 = taps.w0, taps.w1
     g, n = block.shape
     m = n // row_in
     total = torch.cat([carry, block], dim=1)[:, :(m + 1) * row_in]

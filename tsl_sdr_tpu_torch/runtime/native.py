@@ -1,0 +1,282 @@
+"""ctypes bindings for the port's native C++ runtime (``native/tslstream.cc``).
+
+The port's copy of ``tsl_sdr_tpu/runtime/native.py:129-310``: the decoders'
+sample state machines (:class:`PocsagNative`, :class:`FlexNative`,
+:class:`AisNative`) and the batch BCH(31,21) corrector. The source is the
+JAX package's, copied whole; its sources, sinks, rotator and Costas loop
+are built too and bound when a ported stage needs them.
+
+The library is built with ``g++`` at first use into
+``build/tsl_sdr_tpu_torch/`` beside the package, under a name keyed on a
+hash of the source and the flags, so a changed source rebuilds and the
+package directory is never written. Processes that share a checkout (test
+workers) build one at a time under an ``fcntl`` lock, each to a temporary
+name that is then renamed into place. A failed build raises. The library
+is loaded with ctypes' default ``RTLD_LOCAL``, so it coexists in one
+process with the JAX package's copy, which exports the same symbols.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+SRC = Path(__file__).resolve().parents[1] / "native" / "tslstream.cc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tsl_sdr_tpu_torch"
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
+
+_LOCK = threading.Lock()
+_LIB = None
+
+_P = ctypes.c_void_p
+_SZ = ctypes.c_size_t
+_I16P = ctypes.POINTER(ctypes.c_int16)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_U32P = ctypes.POINTER(ctypes.c_uint32)
+# name -> (restype, argtypes)
+SIGNATURES = {
+    "tsl_bch3121_decode": (None, [_U32P, ctypes.c_long, _U32P, _U8P]),
+    "tsl_flex_new": (_P, []),
+    "tsl_flex_free": (None, [_P]),
+    "tsl_flex_in_search": (ctypes.c_int, [_P]),
+    "tsl_flex_sync_reset_only": (None, [_P]),
+    "tsl_flex_verdict": (None, [_P, ctypes.c_int]),
+    "tsl_flex_on_pcm": (ctypes.c_long,
+                        [_P, _I16P, _SZ, _U8P, _SZ, ctypes.POINTER(_SZ)]),
+    "tsl_pocsag_new": (_P, []),
+    "tsl_pocsag_free": (None, [_P]),
+    "tsl_pocsag_state": (ctypes.c_int, [_P]),
+    "tsl_pocsag_detect_reset": (None, [_P]),
+    "tsl_pocsag_on_pcm": (ctypes.c_long, [_P, _I16P, _SZ, _U8P, _SZ]),
+    "tsl_ais_new": (_P, []),
+    "tsl_ais_free": (None, [_P]),
+    "tsl_ais_detect_reset": (None, [_P]),
+    "tsl_ais_crc_rejects": (ctypes.c_uint64, [_P]),
+    "tsl_ais_state": (ctypes.c_int, [_P]),
+    "tsl_ais_on_pcm": (ctypes.c_long, [_P, _I16P, _SZ, _U8P, _SZ]),
+}
+
+
+def lib_path() -> Path:
+    """Where the library for the current source and flags lives."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(SRC.read_bytes())
+    return BUILD_DIR / f"libtslstream-{h.hexdigest()[:16]}.so"
+
+
+def _build(path: Path) -> None:
+    tmp = path.with_name(f"{path.stem}.tmp{os.getpid()}.so")
+    try:
+        res = subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"building {SRC.name} failed "
+                               f"({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+def load() -> ctypes.CDLL:
+    """Build (if missing) and load the native library; raise if it cannot
+    be built."""
+    global _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        path = lib_path()
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with open(BUILD_DIR / "tslstream.lock", "w") as lk:
+                fcntl.flock(lk, fcntl.LOCK_EX)
+                if not path.exists():
+                    _build(path)
+        lib = ctypes.CDLL(str(path))
+        for name, (restype, argtypes) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _LIB = lib
+        return lib
+
+
+def bch3121_decode_native(words: np.ndarray):
+    """Batch BCH(31,21,t=2) decode via the native corrector: the contract
+    of ``models.bch.BchCode.decode`` on the POCSAG/FLEX instance."""
+    lib = load()
+    words = np.ascontiguousarray(words, np.uint32)
+    out = np.empty_like(words)
+    fail = np.empty(words.size, np.uint8)
+    lib.tsl_bch3121_decode(words.ctypes.data_as(_U32P), words.size,
+                           out.ctypes.data_as(_U32P),
+                           fail.ctypes.data_as(_U8P))
+    return out, fail.astype(bool)
+
+
+class _Handle:
+    """One native FSM instance, freed with its Python owner."""
+
+    _free = ""
+
+    def __del__(self):
+        try:
+            if self._h:
+                getattr(self._lib, self._free)(self._h)
+                self._h = None
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
+class FlexNative(_Handle):
+    """The native FLEX sample FSM (``tslstream.cc`` ``tsl_flex_*``).
+
+    Pauses at each FIW for the caller's BCH verdict (the FLEX FSM's
+    transitions depend on BCH there, unlike POCSAG); frame events carry
+    each phase's 88 words for vectorized BCH + message assembly."""
+
+    _free = "tsl_flex_free"
+
+    def __init__(self):
+        self._lib = load()
+        self._h = self._lib.tsl_flex_new()
+
+    def on_pcm(self, pcm: np.ndarray):
+        """Returns (events, consumed). Events: ('fiw', coding_idx, range,
+        delta, fiw_raw) — processing paused, call verdict() — or
+        ('frame', coding_idx, [(phase_id, words[88])...])."""
+        pcm = np.ascontiguousarray(pcm, np.int16)
+        cap = pcm.size // 8 + 8192
+        out = np.empty(cap, np.uint8)
+        consumed = _SZ(0)
+        ret = self._lib.tsl_flex_on_pcm(
+            self._h, pcm.ctypes.data_as(_I16P), pcm.size,
+            out.ctypes.data_as(_U8P), cap, ctypes.byref(consumed))
+        if ret < 0:
+            raise RuntimeError("tsl_flex_on_pcm output buffer overflow")
+        events = []
+        buf = bytes(out[:ret])
+        o = 0
+        while o < ret:
+            tag = buf[o]
+            o += 1
+            if tag == ord("F"):
+                idx = buf[o]
+                rng = int.from_bytes(buf[o + 1:o + 5], "little", signed=True)
+                delta = int.from_bytes(buf[o + 5:o + 9], "little", signed=True)
+                fiw = int.from_bytes(buf[o + 9:o + 13], "little")
+                events.append(("fiw", idx, rng, delta, fiw))
+                o += 13
+            else:
+                idx = buf[o]
+                o += 1
+                phases = []
+                for _ in range((1, 2, 2, 4)[idx]):
+                    pid = buf[o]
+                    words = np.frombuffer(buf, np.uint32, 88, o + 1)
+                    phases.append((pid, words))
+                    o += 1 + 88 * 4
+                events.append(("frame", idx, phases))
+        return events, int(consumed.value)
+
+    def verdict(self, ok: bool):
+        self._lib.tsl_flex_verdict(self._h, 1 if ok else 0)
+
+    def sync_reset_only(self):
+        self._lib.tsl_flex_sync_reset_only(self._h)
+
+    @property
+    def in_search(self) -> bool:
+        """SYNC_1 hunt with zero progress (see tsl_flex_in_search)."""
+        return bool(self._lib.tsl_flex_in_search(self._h))
+
+
+class PocsagNative(_Handle):
+    """The native POCSAG sample FSM (``tslstream.cc`` ``tsl_pocsag_*``).
+
+    Emits ('batch', baud, words[16]) and ('sync_lost',) events; BCH and
+    message assembly stay on the Python side (the FSM's transitions never
+    depend on BCH, pager_pocsag.c:451-540)."""
+
+    _free = "tsl_pocsag_free"
+
+    def __init__(self):
+        self._lib = load()
+        self._h = self._lib.tsl_pocsag_new()
+
+    def on_pcm(self, pcm: np.ndarray) -> list[tuple]:
+        pcm = np.ascontiguousarray(pcm, np.int16)
+        # one batch per 512*spb(>=16) samples max, 67 bytes per event
+        cap = pcm.size // 64 + 4096
+        out = np.empty(cap, np.uint8)
+        ret = self._lib.tsl_pocsag_on_pcm(
+            self._h, pcm.ctypes.data_as(_I16P), pcm.size,
+            out.ctypes.data_as(_U8P), cap)
+        if ret < 0:
+            raise RuntimeError("tsl_pocsag_on_pcm output buffer overflow")
+        events = []
+        buf = bytes(out[:ret])
+        o = 0
+        while o < ret:
+            tag = buf[o]
+            o += 1
+            if tag == ord("B"):
+                baud = int.from_bytes(buf[o:o + 2], "little")
+                words = np.frombuffer(buf, np.uint32, 16, o + 2)
+                events.append(("batch", baud, words))
+                o += 2 + 64
+            else:
+                events.append(("sync_lost",))
+        return events
+
+    def detect_reset(self):
+        self._lib.tsl_pocsag_detect_reset(self._h)
+
+    @property
+    def in_search(self) -> bool:
+        return self._lib.tsl_pocsag_state(self._h) == 0
+
+
+class AisNative(_Handle):
+    """The native AIS demod FSM (``tslstream.cc`` ``tsl_ais_*``)."""
+
+    _free = "tsl_ais_free"
+
+    def __init__(self):
+        self._lib = load()
+        self._h = self._lib.tsl_ais_new()
+
+    def on_pcm(self, pcm: np.ndarray) -> list[bytes]:
+        pcm = np.ascontiguousarray(pcm, np.int16)
+        cap = pcm.size // 8 + 4096  # dense-traffic worst case, with margin
+        out = np.empty(cap, np.uint8)
+        ret = self._lib.tsl_ais_on_pcm(
+            self._h, pcm.ctypes.data_as(_I16P), pcm.size,
+            out.ctypes.data_as(_U8P), cap)
+        if ret < 0:
+            raise RuntimeError("tsl_ais_on_pcm output buffer overflow")
+        pkts = []
+        o = 0
+        buf = bytes(out[:ret])
+        while o < ret:
+            ln = int.from_bytes(buf[o:o + 4], "little")
+            pkts.append(buf[o + 4:o + 4 + ln])
+            o += 4 + ln
+        return pkts
+
+    def detect_reset(self):
+        self._lib.tsl_ais_detect_reset(self._h)
+
+    @property
+    def in_search(self) -> bool:
+        return self._lib.tsl_ais_state(self._h) == 0
+
+    @property
+    def crc_rejects(self) -> int:
+        return int(self._lib.tsl_ais_crc_rejects(self._h))

@@ -2,8 +2,9 @@
 front end (``decoder-torch``), as a receiver's channel output would hand it
 over (reference ``decoder/decoder.c`` reads int16 PCM at the channel rate).
 
-Bursts come from the JAX package's protocol generators at the protocol's
-rate (POCSAG 38,400 Hz, FLEX 16,000 Hz) and are moved to the channel rate
+Bursts come from the protocol generators (``testing.{pocsag,flex}_gen``)
+at the protocol's rate (POCSAG 38,400 Hz, FLEX 16,000 Hz) and are moved to
+the channel rate
 by nearest-sample indexing (as ``tests/test_ref_parity.py`` delivers
 POCSAG at 25 kHz), spread evenly over the capture, on Gaussian noise.
 """
@@ -12,9 +13,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from tsl_sdr_tpu.testing import flex_gen, pocsag_gen
-from tsl_sdr_tpu.utils.filter_design import (design_rational_resampler_filter,
-                                             resampler_filter_json)
+from tsl_sdr_tpu_torch.testing import flex_gen, pocsag_gen
+from tsl_sdr_tpu_torch.utils.filter_design import (
+    design_rational_resampler_filter, resampler_filter_json)
 
 PROTOCOL_RATES = {"pocsag": 38_400, "flex": 16_000}
 

@@ -7,16 +7,17 @@ fs = 1,228,800 Hz, decimation 32 (38,400 Hz channels),
 +-60/190/320/450 kHz: six POCSAG (ratio 1, no resampler) and two FLEX
 (5/12 resampler to 16 kHz), the last one DC-blocked.
 
-Bursts come from the JAX package's protocol generators and are
-NBFM-modulated onto their carriers as ``tests/test_pipeline.py`` does.
+Bursts come from the protocol generators (``testing.{pocsag,flex}_gen``)
+and are NBFM-modulated onto their carriers as ``tests/test_pipeline.py``
+does.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from tsl_sdr_tpu.testing import flex_gen, pocsag_gen
-from tsl_sdr_tpu.utils.filter_design import firdes_low_pass
+from tsl_sdr_tpu_torch.testing import flex_gen, pocsag_gen
+from tsl_sdr_tpu_torch.utils.filter_design import firdes_low_pass
 
 FS = 1_228_800
 DECIMATION = 32
