@@ -38,13 +38,20 @@ reference's resampler settings, and the pipeline at decimation 50:
    plain versions', their bounds and (K3) one float64 ``torch.bmm`` of the
    same product (CUDA events, after warm-up, in turns);
 6. K1 at decimation 50 (as in phase 2); K4 (frame-form resampler,
-   ``csrc/frame_resampler.cu``) against its plain version, f32 and q14
-   outputs, exactly equal: ``resample_capture`` at 147/160 (5,253 taps)
-   over 60 s of 48 kHz PCM, the streaming step at the decimation-50
-   pipeline's 25/16 group shape, and ``decoder-torch``'s one-channel 25/16
-   step;
+   ``csrc/frame_resampler.cu``, the same split over the dense frame
+   matrix) against its plain version, f32 and q14 outputs, exactly equal:
+   ``resample_capture`` at 147/160 (5,253 taps) over 60 s of 48 kHz PCM,
+   the streaming step at the decimation-50 pipeline's 25/16 group shape,
+   ``decoder-torch``'s one-channel 25/16 step, and adversarial input (all
+   -32768 against a frame matrix of +-32767, rows off the 16-byte grid) at
+   the 147/160 capture and a 64/1 stream; the compiled SASS of every K4
+   instantiation must hold IMMA;
 7. the exact DC blocker (``csrc/dc_blocker.cu``) against its plain version
-   over 1.5 M samples in blocks, state carried: exactly equal;
+   over 1.5 M samples in blocks, state carried, and at 1, 6 and 33 streams
+   on random and full-scale alternating input from states whose acc wraps
+   and whose y_prev is not acc >> 14, at poles 0.9999 and 0.5, across
+   staged chunks and rows off the 16-byte grid: exactly equal, output and
+   state;
 8. ``decoder-torch`` on 60 s of channel audio with 6 bursts each: FLEX
    ``-I 16 -D 25 -F etc/flex_16_25.json``, POCSAG ``-I 192 -D 125 -F
    etc/pocsag_38400_from_25k.json -b`` (exact DC), and POCSAG from 24,576
@@ -55,8 +62,13 @@ reference's resampler settings, and the pipeline at decimation 50:
 10. the pipeline at decimation 50 (six 24,576 Hz POCSAG channels, one 25/16
    group): every burst must decode, on the native decoder tier;
 11. K4's and the exact DC kernel's times beside their plain versions' and
-   their bounds at the shapes of those paths, K4's also beside one float64
-   ``torch.bmm`` of the same product.
+   their bounds at the shapes of those paths and at the 147/160 capture,
+   K4's also beside one float64 ``torch.bmm`` of the same product. The DC
+   kernel's bound is a latency: the step's samples times one turn of its
+   dependent chain, measured on the card (``bench/dc_chain_probe.cu``,
+   built beside the kernel library: cycles and nanoseconds of the chain on
+   registers alone), with the chain's instructions read from the probe's
+   SASS and the SM clock from nvidia-smi.
 
 Each path of phases 4, 8, 9 and 10 runs with the kernels' launch counts
 set to 0 just before it and read just after; a kernel of the path that
@@ -65,9 +77,9 @@ never launched fails the run. jax, jaxlib and the JAX package
 the end, so the run also proves that the port needs none of them. A
 kernel's bound is the larger of its bytes over HBM's rate and its int16
 multiply-adds (four int8 tensor-core products each) over the int8 peak,
-from the H100's published peaks. Any failed check raises and the exit
-code is non-zero. The last two lines are the kernels' JSON summary and
-``{"ok": true, "device": {...}}``.
+from the H100's published peaks; the DC kernel's is its chain's latency.
+Any failed check raises and the exit code is non-zero. The last two lines
+are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -75,6 +87,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -106,6 +119,46 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock nvidia-smi reads now, in MHz."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(res.stdout.strip().splitlines()[0])
+
+
+def sass_by_kernel(lib_path=None) -> dict:
+    """A built library's SASS (``cuobjdump -sass``; by default the kernel
+    library's): kernel name -> its instructions."""
+    from tsl_sdr_tpu_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass",
+                          str(lib_path or build.BUILD_DIR / build.LIB_NAME)],
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    funcs, cur = {}, None
+    for line in res.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = []
+        elif cur is not None and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
+            funcs[cur].append(line.split("/*")[1].split("*/", 1)[1]
+                              .strip().rstrip(" ;"))
+    return funcs
+
+
+def mnemonics(instrs) -> dict:
+    """How often each opcode (predicate and modifiers dropped) occurs."""
+    ops = {}
+    for ins in instrs:
+        op = ins.split()[1] if ins.startswith("@") else ins.split()[0]
+        ops[op] = ops.get(op, 0) + 1
+    return ops
 
 
 def pcm_diff(a, b):
@@ -647,8 +700,9 @@ def check_frame_resampler(dec50, device):
                                       frames=pcm.numel() // plan.d_rep,
                                       out=out)[0]
         log(f"K4 vs plain, resample_capture 147/160 ({plan.frame_shifts} "
-            f"frames of {plan.d_rep} per window, {taps.cols.shape[1]} taps a "
-            f"column) over {pcm.numel()} samples -> {got.numel()} {out}: "
+            f"frames of {plan.d_rep} per window, "
+            f"{plan.taps_sel_i16.shape[1]} taps a column) over "
+            f"{pcm.numel()} samples -> {got.numel()} {out}: "
             f"max|diff|={max_err(got, ref)}")
         require(torch.equal(got, ref), f"K4 capture ({out}) differs")
         worst = max(worst, max_err(got, ref))
@@ -684,8 +738,78 @@ def check_frame_resampler(dec50, device):
             require(torch.equal(got, ref), f"K4 {name} ({out}) differs")
             worst = max(worst, max_err(got, ref))
         steps[name] = {"carry": carry, "block": block, "taps": taps_,
-                       "frames": frames}
+                       "frames": frames, "plan": plan_}
+    worst = max(worst, check_k4_adversarial(device))
     return cap, steps, worst
+
+
+def check_k4_adversarial(device) -> float:
+    """K4 on all -32768 samples against a frame matrix of +-32767 taps
+    (random signs; every byte product at its extreme, the int32 sums
+    through many wraps), the rows off the 16-byte grid: the 147/160
+    capture and a 3-channel 64/1 stream (D_rep 1: funnel-shifted A)."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import frame_resampler as k4
+    from tsl_sdr_tpu_torch.ops import polyphase, q14
+    from tsl_sdr_tpu_torch.testing import channel_audio
+
+    worst = 0.0
+    for (i_, d_), g, n_carry, frames in (((147, 160), 1, 0, 18_000),
+                                         ((64, 1), 3, 35, 4_096)):
+        plan = polyphase.make_resampler_plan(
+            q14.quantize_q14(channel_audio.resampler_taps(i_, d_)), i_, d_)
+        rng = np.random.default_rng(i_ + d_)
+        w = np.where(rng.random(plan.w_frames_i16.shape) < 0.5, -32767,
+                     32767).astype(np.int16)
+        taps = k4.frame_taps_of(w, plan.d_rep, device=device)
+        carry = torch.full((g, n_carry), -32768, dtype=torch.int16,
+                           device=device)
+        n = frames * plan.d_rep - 5
+        buf = torch.full((g * n + 3,), -32768, dtype=torch.int16,
+                         device=device)
+        block = buf[3:].view(g, n)          # 6 bytes past the 16-byte grid
+        for out in ("f32", "q14"):
+            got = k4.frame_resample(carry, block, taps, frames=frames,
+                                    out=out)
+            ref = k4.frame_resample_plain(carry, block, taps, frames=frames,
+                                          out=out)
+            err = max_err(got, ref)
+            log(f"K4 vs plain, adversarial {i_}/{d_} (-32768 against "
+                f"+-32767 taps, {k4_launch_shape(taps, frames, out)}): "
+                f"carry "
+                f"{list(carry.shape)} "
+                f"block {list(block.shape)} off the 16-byte grid -> "
+                f"{list(got.shape)} {out}: max|diff|={err}")
+            require(torch.equal(got, ref),
+                    f"K4 adversarial {i_}/{d_} ({out}) differs")
+            worst = max(worst, err)
+    return worst
+
+
+def k4_launch_shape(taps, frames: int, out: str = "f32") -> str:
+    """K4's launch at ``frames`` frames, from the rule the wrapper passes
+    to the kernel (``k4.launch_shape``)."""
+    from tsl_sdr_tpu_torch.ops import frame_resampler as k4
+
+    s = k4.launch_shape(taps, frames, out)
+    return (f"K {s.k_pad}, N {8 * s.n_tiles}, {s.n_live} of "
+            f"{s.k_pad // 32 * s.n_tiles} tap tiles kept, TM {s.tm}, "
+            f"{s.warps} warps, {-(-frames // s.tm)} frame tiles a channel, "
+            f"{s.smem} B of dynamic shared memory")
+
+
+def check_k4_sass(sass: dict) -> None:
+    """Every K4 instantiation (two epilogues x ldmatrix or funnel-shifted A
+    fragments) computes on the int8 tensor cores: its SASS holds IMMA."""
+    k4 = {name: sum(c for op, c in mnemonics(ins).items()
+                    if op.startswith("IMMA"))
+          for name, ins in sass.items() if "frame_resample_kernel" in name}
+    log(f"K4 SASS: IMMA instructions per instantiation "
+        f"{sorted(k4.values())} ({len(k4)} instantiations)")
+    require(len(k4) == 4 and all(k4.values()),
+            f"K4 instantiations without IMMA: {k4}")
 
 
 def check_dc_exact(device):
@@ -724,7 +848,110 @@ def check_dc_exact(device):
     whole_ms = time_ms(kernel_whole, 3)
     log(f"exact DC blocker kernel over {x.shape[1]} samples in one launch: "
         f"{whole_ms:.3f} ms")
-    return p, worst
+    return p, max(worst, check_dc_adversarial(device))
+
+
+# (x_prev, y_prev, acc): the two near 2^31 wrap acc on their first sample
+# whatever it is, and no y_prev here is acc >> 14 (as in
+# tests/test_torch_dc_exact.py)
+DC_STATES = [(0, 0, 0), (-(32768 << 14), -4000, (1 << 31) - 2000),
+             (32767 << 14, 4000, -(1 << 31) + 2000), (5 << 14, 12_345, 0)]
+
+
+def check_dc_adversarial(device) -> float:
+    """The exact DC kernel vs plain at 1, 6 and 33 streams, poles 0.9999
+    and 0.5: random input with every other stream full-scale alternating
+    (the int16 cast of y wraps), states from DC_STATES, 5,000 samples
+    (more than a staged chunk) in uneven blocks whose rows sit off the
+    16-byte grid: output and state exactly equal."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
+
+    n = 5_000
+    cuts = [(0, 3), (3, 1155), (1155, 1155), (1155, 3500), (3500, n)]
+    worst = 0.0
+    for g in (1, 6, 33):
+        for pole in (0.9999, 0.5):
+            rng = np.random.default_rng(g)
+            x = rng.integers(-32768, 32768, size=(g, n)).astype(np.int16)
+            x[1::2] = np.where(np.arange(n) % 2, 32767, -32768)
+            st0 = torch.tensor([DC_STATES[i % 4] for i in range(g)],
+                               dtype=torch.int32)
+            p = dcb.make_pole_coeff(pole)
+            st_k, st_p = st0.to(device), st0.clone()
+            for off, (lo, hi) in enumerate(cuts):
+                part = torch.from_numpy(np.ascontiguousarray(x[:, lo:hi]))
+                buf = torch.zeros(part.numel() + off, dtype=torch.int16,
+                                  device=device)
+                buf[off:] = part.reshape(-1).to(device)
+                got = dcb.dc_block_exact(st_k, buf[off:].view(part.shape),
+                                         p)
+                ref = dcb.dc_block_exact_plain(st_p, part, p)
+                require(torch.equal(got.cpu(), ref)
+                        and torch.equal(st_k.cpu(), st_p),
+                        f"exact DC blocker, {g} streams, pole {pole}: "
+                        f"differs in samples [{lo}, {hi})")
+                if hi > lo:
+                    worst = max(worst, max_err(got, ref))
+    log(f"exact DC blocker vs plain, adversarial: 1, 6 and 33 streams, "
+        f"poles 0.9999 and 0.5, random and alternating full-scale input, "
+        f"states with acc near +-2^31 and y_prev != acc >> 14, {n} samples "
+        f"in blocks {cuts} off the 16-byte grid: max|diff|={worst}, states "
+        f"equal")
+    return worst
+
+
+def build_dc_probe():
+    """``bench/dc_chain_probe.cu`` (the exact DC kernel's chain alone on
+    registers) built beside the kernel library: (the library, its SASS by
+    kernel)."""
+    import ctypes
+
+    from tsl_sdr_tpu_torch.kernels import build
+
+    path = build.BUILD_DIR / "probe" / "libdc_chain_probe.so"
+    t0 = time.perf_counter()
+    build.compile_shared([HERE / "bench" / "dc_chain_probe.cu"], path)
+    lib = ctypes.CDLL(str(path))
+    lib.tsl_dc_chain_probe.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_void_p]
+    lib.tsl_dc_chain_probe.restype = ctypes.c_int
+    log(f"DC chain probe built in {time.perf_counter() - t0:.1f} s")
+    return lib, sass_by_kernel(path)
+
+
+def dc_chain_latency(device, turns: int = 1 << 20) -> dict:
+    """The DC kernel's bound per sample: one turn of its dependent chain,
+    run alone on registers by ``bench/dc_chain_probe.cu`` (clock64 cycles
+    and globaltimer nanoseconds over ``turns`` turns), beside the opcodes
+    of the probe's 16-turn loop from its SASS and nvidia-smi's SM clock."""
+    import torch
+
+    from tsl_sdr_tpu_torch.kernels import build
+
+    lib, sass = build_dc_probe()
+    buf = torch.zeros(4, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for t in (16, turns):
+        build.check(lib.tsl_dc_chain_probe(buf.data_ptr(), t, stream),
+                    "tsl_dc_chain_probe")
+    torch.cuda.synchronize()
+    cycles, ns, _, _ = buf.cpu().tolist()
+    probe = next(ins for name, ins in sass.items()
+                 if "dc_chain_probe_kernel" in name)
+    ops = mnemonics(probe)
+    res = {"cycles_per_turn": cycles / turns, "ns_per_turn": ns / turns,
+           "probe_ghz": cycles / ns, "smi_sm_mhz": sm_clock_mhz(),
+           "sass_ops": {op: ops.get(op, 0)
+                        for op in ("SHF.R.S32.HI", "IMAD", "IADD3")}}
+    log(f"exact DC chain: {res['cycles_per_turn']:.3f} cycles = "
+        f"{res['ns_per_turn']:.4f} ns a turn ({turns} turns alone on "
+        f"registers; {res['probe_ghz']:.3f} GHz in the probe, nvidia-smi "
+        f"clocks.sm {res['smi_sm_mhz']:.0f} MHz); the probe's loop SASS "
+        f"(16 turns): {res['sass_ops']}")
+    return res
 
 
 def decoder_runs(tmp: Path, device):
@@ -842,8 +1069,8 @@ def dec50_run(device):
 
 def front_end(device, totals: dict) -> dict:
     """Phases 6-11: K1 at decimation 50 and the decoder front end's
-    kernels and paths. Returns the runs' walls, the kernels' summaries and
-    K1's largest error at decimation 50."""
+    kernels and paths. Returns the runs' walls, the kernels' summaries
+    and K1's largest error at decimation 50."""
     import numpy as np
     import torch
 
@@ -884,32 +1111,36 @@ def front_end(device, totals: dict) -> dict:
     # times at the paths' shapes (after warm-up), each beside one float64
     # torch.bmm of the same product
     k4_times = {}
+    pcm, cplan, ctaps = cap["pcm"], cap["plan"], cap["taps"]
+    steps["147/160 capture"] = {
+        "carry": pcm.new_zeros((1, 0)), "block": pcm[None], "taps": ctaps,
+        "frames": pcm.numel() // cplan.d_rep, "plan": cplan}
     for name, st in steps.items():
         carry, block, taps = st["carry"], st["block"], st["taps"]
-        frames = st["frames"]
+        frames, plan = st["frames"], st["plan"]
+        reps = 20 if name == "147/160 capture" else 50
         t = kernel_times(
             lambda: k4.frame_resample_plain(carry, block, taps,
                                             frames=frames),
             lambda: k4.frame_resample(carry, block, taps, frames=frames),
-            10, 50, library=frame_library(carry, block, taps, frames))
-        n_out = carry.shape[0] * frames * taps.cols.shape[0]
+            reps // 5, reps, library=frame_library(carry, block, taps,
+                                                   frames))
+        # the function needs P multiply-adds an output (the banded form),
+        # and reads each of the I_rep phase filters (P int16 taps) and its
+        # window offset (int32) once
+        n_out = carry.shape[0] * frames * plan.i_rep
+        taps_bytes = (plan.taps_sel_i16[:plan.i_rep].nbytes
+                      + plan.offsets[:plan.i_rep].nbytes)
         t["bound_ms"], t["bound_by"] = bound(
-            n_out * taps.cols.shape[1],
-            nbytes(carry, block, taps.cols, taps.oj) + 4 * n_out)
+            n_out * plan.taps_sel_i16.shape[1],
+            nbytes(carry, block) + taps_bytes + 4 * n_out)
         k4_times[name] = t
+        log(f"K4 {name}: {k4_launch_shape(taps, frames)}")
         log(f"K4 {name}: kernel {t['ms']:.4f} ms (call {t['call_ms']:.4f}), "
             f"plain {t['plain_ms']:.4f} ms, f64 torch.bmm "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of it")
     fr_t = k4_times["pipeline step 25/16"]
-    pcm, plan, ctaps = cap["pcm"], cap["plan"], cap["taps"]
-    cap_ms, cap_plain_ms = in_turns(
-        lambda: k4.frame_resample_plain(pcm.new_zeros((1, 0)), pcm[None],
-                                        ctaps, frames=pcm.numel()
-                                        // plan.d_rep),
-        lambda: k4.resample_capture(plan, pcm, ctaps), 3, 20)
-    log(f"K4 resample_capture 147/160 over {pcm.numel()} samples: kernel "
-        f"{cap_ms:.3f} ms, plain {cap_plain_ms:.3f} ms")
     x = torch.randint(-32768, 32767, (1, 1152), dtype=torch.int16)
     xd = x.to(device)
     st_k = torch.zeros((1, 3), dtype=torch.int32, device=device)
@@ -918,12 +1149,20 @@ def front_end(device, totals: dict) -> dict:
         lambda: dcb.dc_block_exact_plain(st_p, x, pole),
         lambda: dcb.dc_block_exact(st_k, xd, pole), 20, 200,
         plain_on_host=True)
-    # six integer operations a sample in a serial chain (dc_blocker.cu)
-    dc_t["bound_ms"], dc_t["bound_by"] = bound(
-        0, 2 * nbytes(xd) + 2 * nbytes(st_k), core_ops=6 * xd.numel())
+    # a latency: the step's samples, one dependent chain turn each
+    chain = dc_chain_latency(device)
+    dc_t["bound_ms"] = max(xd.numel() * chain["ns_per_turn"] * 1e-6,
+                           (2 * nbytes(xd) + 2 * nbytes(st_k)) / HBM_BYTES
+                           * 1e3)
+    # the summary's bound_by takes "bytes" or "operations": the chain's
+    # operations, at their latency one after another; bound_kind says so
+    dc_t["bound_by"], dc_t["bound_kind"] = "operations", "latency"
+    dc_t["chain"] = chain
     log(f"exact DC, 1,152-sample step: kernel {dc_t['ms']:.4f} ms (call "
         f"{dc_t['call_ms']:.4f}), plain {dc_t['plain_ms']:.4f} ms (host "
-        f"loop), bound {dc_t['bound_ms']:.7f} ms ({dc_t['bound_by']})")
+        f"loop), bound {dc_t['bound_ms']:.5f} ms (latency: 1,152 turns of "
+        f"{chain['cycles_per_turn']:.2f} cycles), "
+        f"{dc_t['bound_ms'] / dc_t['ms']:.1%} of it")
     return {
         "runs": runs,
         "k4": k4_times,
@@ -941,7 +1180,7 @@ def front_end(device, totals: dict) -> dict:
     }
 
 
-def smoke(device: str = "cuda") -> dict:
+def smoke(device: str) -> dict:
     """Phases 2-11 on ``device``; returns the kernels' summary."""
     import torch
 
@@ -1056,6 +1295,7 @@ def main() -> int:
     for line in build.ptxas_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    check_k4_sass(sass_by_kernel())
     from tsl_sdr_tpu_torch.runtime import native
 
     t0 = time.perf_counter()

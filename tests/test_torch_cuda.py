@@ -98,10 +98,12 @@ def test_row_resample_kernel_matches_plain(cuda, g, m):
 
 
 @pytest.mark.parametrize("i_,d_,g,frames,short", [
-    (147, 160, 3, 133, 0),    # 3 channels, a ragged last 64-frame tile
+    (147, 160, 3, 133, 0),    # 3 channels, a ragged last frame tile
     (25, 16, 2, 5184, 0),     # the decimation-50 pipeline's POCSAG group
     (64, 1, 2, 70, 5),        # D_rep = 1, 36 spill frames, a short block
-    (32, 5, 1, 3, 2),         # fewer frames than one thread's four
+    (32, 5, 1, 3, 2),         # fewer frames than one m16 tile
+    (25, 48, 2, 41, 0),       # D_rep = 48: ldmatrix rows at pitch 48
+    (64, 3, 3, 333, 7),       # D_rep = 3: funnel-shifted A fragments
 ])
 @pytest.mark.parametrize("out", ["f32", "q14"])
 def test_frame_resample_kernel_matches_plain(cuda, i_, d_, g, frames, short,
@@ -138,6 +140,72 @@ def test_resample_capture_kernel_matches_plain(cuda):
         ref = k4.frame_resample_plain(pcm.new_zeros((1, 0)), pcm[None], taps,
                                       frames=3000, out=out)[0]
         assert torch.equal(got, ref)
+
+
+def test_frame_resample_kernel_checks_its_launch(cuda):
+    """The kernel takes TM, warps and shared memory from
+    ``k4.launch_shape`` and rejects shared memory that is not its layout's
+    size at that TM, or a TM off its 16-frame grid."""
+    from tsl_sdr_tpu_torch.kernels import build
+
+    coeffs = q14.quantize_q14(design_rational_resampler_filter(25, 16, 0.4))
+    plan = polyphase.make_resampler_plan(coeffs, 25, 16)
+    taps = k4.frame_taps(plan, device=cuda)
+    frames = plan.block_out // plan.i_rep
+    rng = np.random.default_rng(41)
+    carry, block = (torch.from_numpy(rng.integers(
+        -32768, 32767, size=(1, n)).astype(np.int16)).to(cuda)
+        for n in (plan.carry_len, plan.block_in))
+    res = torch.empty((1, frames * plan.i_rep), dtype=torch.float32,
+                      device=cuda)
+    lib = build.load()
+    shape = k4.launch_shape(taps, frames)
+
+    def launch(tm, warps, smem):
+        return lib.tsl_frame_resample(
+            carry.data_ptr(), block.data_ptr(), taps.w_hi.data_ptr(),
+            taps.w_lo.data_ptr(), taps.w_index.data_ptr(), res.data_ptr(),
+            frames, plan.i_rep, plan.d_rep, shape.k_pad, shape.n_tiles,
+            shape.n_live, plan.carry_len, plan.block_in, 1, 0, tm, warps,
+            smem, torch.cuda.current_stream().cuda_stream)
+
+    assert launch(shape.tm, shape.warps, shape.smem) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(res, k4.frame_resample_plain(carry, block, taps,
+                                                    frames=frames))
+    assert launch(shape.tm, shape.warps, shape.smem + 16) != 0
+    assert launch(shape.tm - 8, shape.warps, shape.smem) != 0
+
+
+def _offset_rows(x: np.ndarray, offset: int, device) -> torch.Tensor:
+    """``x`` [G, n] as a contiguous device tensor starting ``offset``
+    samples into its buffer, so its rows sit off the 16-byte grid."""
+    buf = torch.zeros(x.size + offset, dtype=torch.int16, device=device)
+    buf[offset:] = torch.from_numpy(x.reshape(-1)).to(device)
+    return buf[offset:].view(x.shape)
+
+
+@pytest.mark.parametrize("i_,d_", [(147, 160), (64, 1)])
+@pytest.mark.parametrize("out", ["f32", "q14"])
+def test_frame_resample_kernel_adversarial(cuda, i_, d_, out):
+    """All -32768 samples against a frame matrix of +-32767 taps: every
+    byte product at its extreme and the int32 sums through many wraps;
+    the block's rows off the 16-byte grid."""
+    coeffs = q14.quantize_q14(design_rational_resampler_filter(i_, d_, 0.4))
+    plan = polyphase.make_resampler_plan(coeffs, i_, d_)
+    rng = np.random.default_rng(i_ + d_)
+    w = np.where(rng.random(plan.w_frames_i16.shape) < 0.5, -32767,
+                 32767).astype(np.int16)
+    taps = k4.frame_taps_of(w, plan.d_rep, device=cuda)
+    g, frames = 2, plan.block_out // plan.i_rep
+    carry = torch.full((g, plan.carry_len), -32768, dtype=torch.int16,
+                       device=cuda)
+    block = _offset_rows(np.full((g, plan.block_in), -32768, np.int16), 3,
+                         cuda)
+    got = k4.frame_resample(carry, block, taps, frames=frames, out=out)
+    ref = k4.frame_resample_plain(carry, block, taps, frames=frames, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("g,m", [(1, 3), (2, 85)])
@@ -206,6 +274,39 @@ def test_dc_block_exact_kernel_matches_plain(cuda):
         assert torch.equal(got.cpu(), ref)
         assert torch.equal(st_k.cpu(), st_p)
     assert dc_blocker.dc_block_exact.launches == before + 3
+
+
+# (x_prev, y_prev, acc) of tests/test_torch_dc_exact.py: acc wraps on the
+# first sample, and y_prev is not acc >> 14
+_DC_STATES = [(0, 0, 0), (-(32768 << 14), -4000, (1 << 31) - 2000),
+              (32767 << 14, 4000, -(1 << 31) + 2000), (5 << 14, 12_345, 0)]
+
+
+@pytest.mark.parametrize("g", [1, 6, 33])
+@pytest.mark.parametrize("pole", [0.9999, 0.5])
+def test_dc_block_exact_kernel_adversarial(cuda, g, pole):
+    """G streams (33 cross a warp's worth), random and full-scale
+    alternating input, the adversarial states, and a stream longer than a
+    staged chunk (2,048 samples) in uneven blocks, some off the 16-byte
+    grid: output and state exactly equal."""
+    rng = np.random.default_rng(g)
+    n = 5_000
+    x = rng.integers(-32768, 32768, size=(g, n)).astype(np.int16)
+    x[1::2] = np.where(np.arange(n) % 2, 32767, -32768)
+    st0 = np.array([_DC_STATES[i % 4] for i in range(g)], np.int32)
+    p = dc_blocker.make_pole_coeff(pole)
+    st_k = torch.from_numpy(st0.copy()).to(cuda)
+    st_p = torch.from_numpy(st0.copy())
+    for k, (lo, hi) in enumerate([(0, 3), (3, 1155), (1155, 1155),
+                                  (1155, 3500), (3500, n)]):
+        part = np.ascontiguousarray(x[:, lo:hi])
+        got = dc_blocker.dc_block_exact(st_k, _offset_rows(part, k, cuda),
+                                        p)
+        ref = dc_blocker.dc_block_exact_plain(st_p, torch.from_numpy(part),
+                                              p)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref), (lo, hi)
+        assert torch.equal(st_k.cpu(), st_p), (lo, hi)
 
 
 def test_wrappers_raise_on_bad_input(cuda):

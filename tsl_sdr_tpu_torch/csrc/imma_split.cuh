@@ -1,5 +1,6 @@
 // Exact int16 x int16 -> wrapped int32 products on Hopper's int8 tensor
-// cores (IMMA), shared by K1 (chain.cu) and K3 (row_resampler.cu).
+// cores (IMMA), shared by K1 (chain.cu), K3 (row_resampler.cu) and K4
+// (frame_resampler.cu).
 //
 // The tensor cores take 8-bit operands, not 16-bit ones. An int16 is
 // 256 * hi + lo with hi = x >> 8 (signed byte) and lo = x & 0xFF (unsigned
@@ -14,7 +15,8 @@
 // No partial leaves s32 for K <= 32768 (the wrappers check it).
 //
 // Operands: A (the input samples) is split while it is staged into two
-// row-major byte planes in shared memory and read with ldmatrix; B (the
+// row-major byte planes in shared memory and read with ldmatrix (K1, K3)
+// or, where rows sit at any byte, with aligned word loads (K4); B (the
 // taps) is split once at plan time (ops/imma_split.py fragment_planes) into
 // planes whose 32x8 tiles are stored in B-fragment lane order, so a warp
 // reads a tile as one coalesced 256-byte load of a uint2 per lane.

@@ -37,8 +37,9 @@ SIGNATURES = {
                      _I, _I, _I, _I, _I, _I, _I, _P],
     "tsl_row_resample": [_P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _L, _I, _I, _P],
-    "tsl_frame_resample": [_P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _L, _I, _I, _P],
+    "tsl_frame_resample": [_P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _L, _I, _I,
+                           _I, _I, _I, _P],
     "tsl_dc_block_exact": [_P, _P, _P, _L, _I, _I, _P],
 }
 
@@ -48,7 +49,10 @@ build_seconds = 0.0   # wall time of the last build (0.0 when up to date)
 ptxas_log = ""        # the compiler's per-kernel register/smem report
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on the PATH, else under ``CUDA_HOME``
+    (default ``/usr/local/cuda``); the toolkit's other tools sit beside
+    it."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -93,17 +97,28 @@ def _build(lib_path: Path, digest: str) -> None:
     tag = f"tmp{os.getpid()}"
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
     try:
-        ptxas_log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+        nvcc = nvcc_path()
+        ptxas_log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
                                str(src)]
                               for src, obj in zip(_sources(), objs)])
         tmp = lib_path.with_suffix(f".{tag}.so")
-        _run_all([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
     os.replace(tmp, lib_path)
     (BUILD_DIR / f"{LIB_NAME}.sha256").write_text(digest)
     build_seconds = time.monotonic() - t0
+
+
+def compile_shared(sources, lib_path: Path) -> str:
+    """Build CUDA sources outside the kernel library (a measurement probe,
+    a patched copy of a kernel) into the shared library ``lib_path`` with
+    the library's flags, in one ``nvcc``; they may include ``csrc``'s
+    headers. Returns the compiler's register/smem report."""
+    Path(lib_path).parent.mkdir(parents=True, exist_ok=True)
+    return _run_all([[nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-shared",
+                      "-o", str(lib_path), *map(str, sources)]])
 
 
 def load() -> ctypes.CDLL:

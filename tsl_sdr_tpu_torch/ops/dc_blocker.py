@@ -9,8 +9,10 @@ Port of ``tsl_sdr_tpu/ops/dc_blocker.py:31-93``. The reference recurrence
 is serial, and the ``>> 14`` makes it non-associative, so the exact tier
 (:func:`dc_blocker_step_exact`, the default of the decoder's and the
 resampler's ``-b``) is no torch op: on the card it is the hand kernel
-``csrc/dc_blocker.cu``, one thread per stream; on the CPU a plain loop
-(:func:`dc_block_exact_plain`).
+``csrc/dc_blocker.cu``, one warp per stream, which stages the input,
+computes ``d_n = (x_n << 14) - (x_{n-1} << 14)`` on all lanes and runs
+only ``acc = (acc + d_n) - p * y; y = acc >> 14`` serially; on the CPU a
+plain loop (:func:`dc_block_exact_plain`).
 
 The fast tier (:func:`dc_blocker_step_fast`, the pipeline's) is the float
 form of the recurrence, the first-order IIR
