@@ -68,13 +68,26 @@ reference's resampler settings, and the pipeline at decimation 50:
    dependent chain, measured on the card (``bench/dc_chain_probe.cu``,
    built beside the kernel library: cycles and nanoseconds of the chain on
    registers alone), with the chain's instructions read from the probe's
-   SASS and the SM clock from nvidia-smi.
+   SASS and the SM clock from nvidia-smi;
+12. live streaming through ``pipeline-torch --follow`` at the pager
+   deployment's full block on phase 4's capture: (a) a FIFO fed in 1 MiB
+   writes with the drain worker on and (b) off (``--no-drain-async``), in
+   turns, with walls and host-blocked phases; (c) kill and resume through
+   ``--state-file`` on a regular file cut where no burst is on air (the
+   rest appended with a block of silence, which makes the capture's tail
+   the block phase 4's flush padded), the checkpoint's size and its save
+   and restore times; (d) the port's mock RTL-SDR library (built with
+   gcc) delivering the capture's rtl_u8 bytes; (e) ``--realtime`` on the
+   capture file, each message's delay from the delivery of its burst's
+   last sample, under (inflight_depth + 2) blocks. Every run must decode
+   phase 4's messages on native decoders.
 
-Each path of phases 4, 8, 9 and 10 runs with the kernels' launch counts
-set to 0 just before it and read just after; a kernel of the path that
-never launched fails the run. jax, jaxlib and the JAX package
-(``tsl_sdr_tpu``) are made unimportable first, and none may have loaded at
-the end, so the run also proves that the port needs none of them. A
+Each path of phases 4, 8, 9, 10 and each run of phase 12 runs with the
+kernels' launch counts set to 0 just before it and read just after; a
+kernel of the path that never launched fails the run. jax, jaxlib and
+the JAX package (``tsl_sdr_tpu``) are made unimportable first, and none
+may have loaded at the end, so the run also proves that the port needs
+none of them. A
 kernel's bound is the larger of its bytes over HBM's rate and its int16
 multiply-adds (four int8 tensor-core products each) over the int8 peak,
 from the H100's published peaks; the DC kernel's is its chain's latency.
@@ -321,13 +334,19 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
+# wideband sample where each channel's burst starts: channels 1 and 7 are
+# on air across the first and the third block boundary; the second one
+# (8,356,416 at the pager's block and carry) is clear, so phase 12 can
+# restart the decoders there
+BURST_STARTS = (2_000_000, 3_500_000, 5_000_000, 6_500_000, 8_500_000,
+                9_500_000, 200_000, 10_300_000)
+
+
 def make_capture(pager, block_size: int):
-    """Three full blocks plus a ragged tail; bursts staggered so several
+    """Three full blocks plus a ragged tail; bursts staggered so that two
     straddle block boundaries."""
     n = N_FULL_BLOCKS * block_size + TAIL_SAMPLES
-    starts = [2_000_000 + k * 1_500_000 for k in range(6)]
-    starts += [200_000, starts[-1] + 800_000]
-    return pager.capture(n, starts, seed=7)
+    return pager.capture(n, BURST_STARTS, seed=7)
 
 
 def adversarial_chain_taps(taps):
@@ -646,6 +665,252 @@ def run_main_path(pager, iq, expected, device, tmp: Path):
     timing = {k: round(v, 6) for k, v in sorted(pipe.timing.items())}
     return {"blocks": blocks, "wall_s": wall, "samples": iq.shape[0],
             "cli_s": cli_s, "tier": tier, "timing": timing}
+
+
+class StampedLines(io.TextIOBase):
+    """A text stream that keeps every line written to it with the
+    ``perf_counter`` time at which the line was completed."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+        self._part = ""
+
+    def writable(self) -> bool:
+        return True
+
+    def write(self, text: str) -> int:
+        t = time.perf_counter()
+        *done, self._part = (self._part + text).split("\n")
+        self.lines.extend((t, line) for line in done)
+        return len(text)
+
+    def text(self) -> str:
+        return "\n".join(line for _, line in self.lines) + self._part
+
+    def first(self, token: str) -> float:
+        return next(t for t, line in self.lines if token in line)
+
+
+@contextlib.contextmanager
+def timed_pipelines():
+    """Every ReceivePipeline made inside gets ``timing = {}``, emptied
+    again after its warm-up block; yields the list of them."""
+    from tsl_sdr_tpu_torch.models import pipeline as mp
+
+    made = []
+    base = mp.ReceivePipeline
+
+    class Timed(base):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.timing = {}
+            made.append(self)
+
+        def warm_device(self):
+            spent = super().warm_device()
+            self.timing = {}
+            return spent
+
+    mp.ReceivePipeline = Timed
+    try:
+        yield made
+    finally:
+        mp.ReceivePipeline = base
+
+
+def follow_cli(argv, device) -> dict:
+    """``pipeline-torch --follow`` in this process, its JSON lines on a
+    stamped stdout: the messages (freqHz, capCode, message) with the time
+    each line appeared, the stderr, the pipeline (its timing and stream
+    stats) and the wall from its 'following' line to its return."""
+    from tsl_sdr_tpu_torch.cli import pipeline as cli
+
+    out, err = StampedLines(), StampedLines()
+    with timed_pipelines() as made, contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        rc = cli.main([*map(str, argv), "--follow", "--device", device])
+    t_end = time.perf_counter()
+    require(rc == 0, f"pipeline-torch --follow exited {rc}: {err.text()}")
+    require_native("pipeline-torch --follow", cli_tiers(err.text()))
+    msgs = [(t, json.loads(line)) for t, line in out.lines]
+    return {"msgs": [(t, (m["freqHz"], m["capCode"], m["message"]))
+                     for t, m in msgs],
+            "err": err, "pipe": made[0],
+            "wall_s": t_end - err.first("following")}
+
+
+def live_runs(pager, iq, expected, device, tmp: Path, totals: dict,
+              block_size: int, carry_len: int) -> dict:
+    """Phase 12: ``pipeline-torch --follow`` at the pager deployment's full
+    block on phase 4's capture, each run with the launch counts set to 0
+    before it: (a) a FIFO fed in 1 MiB writes, drain worker on, and (b)
+    the same with --no-drain-async, in turns (a, b, b, a); (c) kill and
+    resume through --state-file on a regular file cut where no burst is on
+    air, the decoders restarting at a block boundary no burst crosses, the
+    rest appended with a block of silence; (d)
+    the mock RTL-SDR delivering the capture's rtl_u8 bytes; (e) --realtime
+    on the capture file, with each message's delay from the delivery of
+    its burst's last sample. Every run must decode phase 4's messages."""
+    import os
+    import threading
+
+    import numpy as np
+
+    from tsl_sdr_tpu_torch.testing import mock_radios
+
+    want = sorted((s_off + pager.CENTER_HZ, cap, text)
+                  for s_off, exp in zip(pager.OFFSETS_HZ, expected)
+                  for cap, text in exp)
+    n = iq.shape[0]
+    cap_path = tmp / "live.cs16"
+    iq.tofile(cap_path)
+    raw = iq.tobytes()
+    kernels = ("chain_fm", "row_resample")
+    res = {"fifo": []}
+
+    def keys(run):
+        return sorted(k for _, k in run["msgs"])
+
+    def fifo_run(k: int, flags):
+        fifo = tmp / f"live{k}.fifo"
+        os.mkfifo(fifo)
+        cfg = tmp / f"live{k}.json"
+        cfg.write_text(json.dumps(pager.config(str(fifo))))
+
+        def writer():
+            with open(fifo, "wb") as f:
+                for o in range(0, len(raw), 1 << 20):
+                    f.write(raw[o:o + (1 << 20)])
+
+        t = threading.Thread(target=writer, daemon=True)
+        t.start()
+        run = follow_cli([cfg, *flags], device)
+        t.join(timeout=60)
+        require(not t.is_alive(), "the FIFO writer did not finish")
+        require(keys(run) == want, f"--follow {flags} on a FIFO decoded "
+                f"{keys(run)}, expected {want}")
+        pipe = run["pipe"]
+        st = pipe.stream_stats
+        return {"drain": "sync" if flags else "async",
+                "wall_s": run["wall_s"], "blocks": st["blocks"],
+                "ms_per_block": run["wall_s"] / st["blocks"] * 1e3,
+                "msps": n / run["wall_s"] / 1e6,
+                "fetched": st["fetched"].tolist(),
+                "timing": {k: round(v, 6) for k, v in
+                           sorted(pipe.timing.items())}}
+
+    for k, flags in enumerate([[], ["--no-drain-async"],
+                               ["--no-drain-async"], []]):
+        name = f"live (a/b) FIFO {'sync' if flags else 'async'} drain"
+        r = on_path(name, kernels, lambda: fifo_run(k, flags), totals)
+        res["fifo"].append(r)
+        log(f"{name}: {r['blocks']} blocks in {r['wall_s']:.3f} s = "
+            f"{r['ms_per_block']:.1f} ms/block, {r['msps']:.1f} Msps; "
+            f"fetched {r['fetched']}; host-blocked s {r['timing']}")
+
+    # (c): the decoders restart at the last whole block before the cut
+    # (the partial block rides in the checkpoint): find a boundary no
+    # burst crosses, cut midway to the next burst
+    spans = pager.burst_spans(BURST_STARTS)
+    bounds = [carry_len + j * block_size for j in range(1, N_FULL_BLOCKS + 1)]
+    clear = [b for b in bounds if not any(lo <= b < hi for lo, hi in spans)]
+    require(bool(clear), f"every block boundary {bounds} has a burst on air")
+    b = clear[0]
+    cut = (b + min([lo for lo, _ in spans if lo > b] + [n])) // 2
+    require(not any(lo <= cut < hi for lo, hi in spans), "cut on air")
+    path, state = tmp / "resume.cs16", tmp / "resume.npz"
+    iq[:cut].tofile(path)
+    cfg = tmp / "resume.json"
+    cfg.write_text(json.dumps(pager.config(str(path))))
+    legs = []
+
+    def resume_leg():
+        run = follow_cli([cfg, "--idle-exit", "0.3", "--state-file", state],
+                         device)
+        text = run["err"].text()
+        saved = re.search(r"state saved to \S+ in ([0-9.]+)s", text)
+        restored = re.search(r"resumed from .* in ([0-9.]+)s", text)
+        require(saved is not None, f"no checkpoint written: {text}")
+        return {"msgs": keys(run), "save_s": float(saved.group(1)),
+                "restore_s": float(restored.group(1)) if restored else None,
+                "bytes": state.stat().st_size}
+
+    legs.append(on_path("live (c) kill, leg 1", kernels, resume_leg, totals))
+    # the rest, and a block of silence: leg 2 saves its partial block too,
+    # so the capture's tail must fill a whole block to be decoded; with the
+    # zeros it is the very block phase 4's flush padded
+    with open(path, "ab") as f:
+        iq[cut:].tofile(f)
+        np.zeros((block_size, 2), np.int16).tofile(f)
+    legs.append(on_path("live (c) resume, leg 2", kernels, resume_leg,
+                        totals))
+    got = sorted(legs[0]["msgs"] + legs[1]["msgs"])
+    require(got == want, f"kill and resume decoded {got}, expected {want}")
+    res["resume"] = {"cut": cut, "boundary": b, "legs": legs}
+    log(f"live (c) kill at sample {cut} (decoders restart at {b}): leg 1 "
+        f"{len(legs[0]['msgs'])} messages, checkpoint {legs[0]['bytes']} B "
+        f"saved in {legs[0]['save_s']:.3f} s; leg 2 {len(legs[1]['msgs'])} "
+        f"messages, restored in {legs[1]['restore_s']:.3f} s; together "
+        f"== phase 4's")
+
+    # (d): the mock RTL-SDR library delivers the rtl_u8 wire bytes
+    wire = tmp / "wire.u8"
+    pager.to_rtl_u8(iq).tofile(wire)
+    cfg = tmp / "rtl.json"
+    conf = pager.config(str(wire))
+    conf["device"] = {"type": "rtlsdr", "deviceIndex": 0}
+    cfg.write_text(json.dumps(conf))
+    env = {mock_radios.ENV_VARS["rtlsdr"]: str(mock_radios.build("rtlsdr")),
+           "MOCK_RTLSDR_DATA": str(wire)}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        run = on_path("live (d) mock RTL-SDR", kernels,
+                      lambda: follow_cli([cfg], device), totals)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    require(keys(run) == want, f"the mock RTL-SDR run decoded {keys(run)}, "
+            f"expected {want}")
+    res["rtl"] = {"wall_s": run["wall_s"],
+                  "blocks": run["pipe"].stream_stats["blocks"]}
+    log(f"live (d) mock RTL-SDR: {len(keys(run))} messages == phase 4's "
+        f"rtl_u8 run, {res['rtl']['blocks']} blocks in "
+        f"{run['wall_s']:.3f} s")
+
+    # (e): --realtime paces the file at 1.2288 Msps in 1 MiB reads; a
+    # sample is delivered with the read that holds it
+    cfg = tmp / "realtime.json"
+    cfg.write_text(json.dumps(pager.config(str(cap_path))))
+    run = on_path("live (e) --realtime", kernels,
+                  lambda: follow_cli([cfg, "--realtime", "--idle-exit",
+                                      "0.5"], device), totals)
+    require(keys(run) == want, f"--realtime decoded {keys(run)}")
+    t0 = run["err"].first("following")
+    chunk = (1 << 20) // 4
+    depth = run["pipe"].inflight_depth
+    limit = (depth + 2) * block_size / pager.FS
+    delays = {}
+    for t, (freq, capcode, _) in run["msgs"]:
+        ch = pager.OFFSETS_HZ.index(freq - pager.CENTER_HZ)
+        end = spans[ch][1]
+        delivered = min(n, -(-end // chunk) * chunk)
+        delays[ch] = t - (t0 + delivered / pager.FS)
+    require(max(delays.values()) < limit,
+            f"live latency {delays} over {(depth + 2)} blocks ({limit:.2f} s)")
+    res["latency"] = {"delays_s": [round(delays[c], 4)
+                                   for c in sorted(delays)],
+                      "max_s": max(delays.values()), "limit_s": limit,
+                      "wall_s": run["wall_s"]}
+    log(f"live (e) --realtime: {n / pager.FS:.2f} s of signal in "
+        f"{run['wall_s']:.2f} s; delay from a burst's last sample to its "
+        f"JSON line by channel {res['latency']['delays_s']} s, max "
+        f"{res['latency']['max_s']:.3f} s (limit {limit:.2f} s)")
+    return res
 
 
 def _sync(device) -> None:
@@ -1238,13 +1503,20 @@ def smoke(device: str) -> dict:
     st = pipe._stream["st"]
     run["step_ms"] = time_ms(lambda: prog.dev_step(st, block), 10)
     pipe.stream_reset()
-    del iq, vals, carry, block
+    del vals, carry, block
+
+    # phase 12: live streaming through pipeline-torch --follow
+    with tempfile.TemporaryDirectory() as tmp:
+        live = live_runs(pager, iq, expected, device, Path(tmp), totals,
+                         pipe.block_size, plan.carry_len)
+    del iq
 
     front = front_end(device, totals)
     k3_f32 = k3_times["pipeline 5/12"]
     k3_q14 = k3_times["192/125 decoder step"]
     return {
         "run": run,
+        "live": live,
         "front": front["runs"],
         "k3": k3_times,
         "k4": front["k4"],
@@ -1318,6 +1590,19 @@ def main() -> int:
     log(f"{card} | host-blocked seconds by phase: {json.dumps(run['timing'])}")
     log(f"{card} | device step (all stages of one block, back to back): "
         f"{run['step_ms']:.3f} ms per block")
+    live = summary["live"]
+    for r in live["fifo"]:
+        log(f"{card} | live FIFO, {r['drain']} drain: {r['blocks']} blocks "
+            f"in {r['wall_s']:.4f} s = {r['ms_per_block']:.2f} ms/block, "
+            f"{r['msps']:.1f} Msps; host-blocked s {json.dumps(r['timing'])}")
+    legs = live["resume"]["legs"]
+    log(f"{card} | live kill/resume: checkpoint {legs[0]['bytes']} B, saved "
+        f"in {legs[0]['save_s']:.3f} s, restored in "
+        f"{legs[1]['restore_s']:.3f} s")
+    log(f"{card} | live mock RTL-SDR: {live['rtl']['wall_s']:.3f} s")
+    lat = live["latency"]
+    log(f"{card} | live --realtime latency s by channel {lat['delays_s']}, "
+        f"max {lat['max_s']:.3f} (limit {lat['limit_s']:.2f})")
     front = summary["front"]
     log(f"{card} | decoder-torch wall s (60 s of audio each): "
         f"{json.dumps(front['decoder_s'])}")

@@ -7,12 +7,18 @@ package's test setup:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
+The pipeline's drain worker and its checkpoints are checked on the card
+too: the worker equals the inline drain, and a checkpoint moves between
+the card and the CPU.
+
 Tolerances: K1 <= 1 PCM LSB and >= 99.9 % exact (its float ops are written
 to match the plain version one to one, so it is exact in practice); K3 and
 K4 EXACTLY equal in both output modes (wrapping int32 sums, then one float32
 conversion and a power-of-two scale, or the integer Q.28 -> Q.14 rounding);
 the exact DC blocker EXACTLY equal (the same integer recurrence).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -330,3 +336,65 @@ def test_wrappers_raise_on_bad_input(cuda):
         k3.row_resample(torch.zeros((1, 4), dtype=torch.int16, device=cuda),
                         torch.zeros((1, 64), dtype=torch.int16, device=cuda),
                         bad, row_in=16)
+
+
+
+def _pager_run(pipe, iq, bounds, got=None):
+    got = got or [[] for _ in pipe.channels]
+    for lo, hi in zip(bounds, bounds[1:]):
+        for c, part in enumerate(pipe.push(iq[lo:hi])):
+            got[c].extend(part)
+    for c, part in enumerate(pipe.flush()):
+        got[c].extend(part)
+    return [[dataclasses.asdict(m) for m in msgs] for msgs in got]
+
+
+@pytest.fixture(scope="module")
+def pager_capture():
+    """All eight pager channels with a burst each, over ten 491,520-sample
+    blocks."""
+    starts = [150_000 + k * 550_000 for k in range(8)]
+    starts[6], starts[7] = 250_000, 2_300_000     # the FLEX bursts
+    return pager.capture(5_000_000, starts, seed=9)
+
+
+def _pager_pipe(device, **kw):
+    from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
+
+    return ReceivePipeline(pager.lpf_taps(), pager.CENTER_HZ, pager.FS,
+                           pager.DECIMATION, pager.channel_specs(ChannelSpec),
+                           block_size=491_520, device=device, **kw)
+
+
+def test_drain_async_on_the_card_equals_sync(cuda, pager_capture):
+    """The drain worker on the card (its own thread's device, the copies on
+    the dispatch stream) decodes what the inline drain does: every burst."""
+    iq, expected = pager_capture
+    bounds = [0, 1_000, 700_001, 2_345_678, 3_000_000, len(iq)]
+    got = {asy: _pager_run(_pager_pipe(cuda, drain_async=asy), iq, bounds)
+           for asy in (False, True)}
+    assert got[True] == got[False]
+    assert [[m["capcode"] for m in ch] for ch in got[True]] == [
+        [1_100_000 + 1_000 * k + 8 * (k >= 6)] for k in range(8)]
+
+
+def _legs(first, second, iq, path, split=2_100_000):
+    a = _pager_pipe(first, drain_async=True)
+    got = [list(ch) for ch in a.push(iq[:split])]
+    for c, part in enumerate(a.checkpoint_stream(path)):
+        got[c].extend(part)
+    b = _pager_pipe(second)
+    b.restore_stream(path)
+    return _pager_run(b, iq[split:], [0, len(iq) - split], got)
+
+
+@pytest.mark.parametrize("first,second", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_checkpoint_moves_between_card_and_cpu(cuda, pager_capture, tmp_path,
+                                               first, second):
+    """A checkpoint written on one device restores on the other, with the
+    same messages as the same two legs run on the card alone (bursts on
+    air across the restart are lost alike)."""
+    iq, _ = pager_capture
+    want = _legs("cuda", "cuda", iq, tmp_path / "ref.npz")
+    assert sum(map(len, want)) >= 4
+    assert _legs(first, second, iq, tmp_path / "s.npz") == want

@@ -1,11 +1,13 @@
 """The port runs where jax and the JAX package are absent.
 
 A subprocess makes ``jax``, ``jaxlib`` and ``tsl_sdr_tpu`` unimportable
-before anything loads, then imports the port, its pipeline and its CLI,
-builds a 4-channel CPU pipeline and decodes one POCSAG burst, every decoder
-on its native state machine. A second one runs ``decoder-torch`` (a 25/16
-frame-form POCSAG input, exact tier, ``-b``) and ``resampler-torch``. No
-file of the port, and not ``chip_smoke.py``, imports either package.
+before anything loads, then imports the port, its pipeline, its CLI, its
+hardware sources and mock radios, builds a 4-channel CPU pipeline and
+decodes one POCSAG burst, every decoder on its native state machine. A
+second one runs ``decoder-torch`` (a 25/16 frame-form POCSAG input, exact
+tier, ``-b``) and ``resampler-torch``, a third ``pipeline-torch --follow``
+on a FIFO. No file of the port, and not ``chip_smoke.py``, imports either
+package.
 """
 
 import os
@@ -36,6 +38,9 @@ import tsl_sdr_tpu_torch.cli.pipeline
 import tsl_sdr_tpu_torch.utils.convert
 import tsl_sdr_tpu_torch.models.resampler
 import tsl_sdr_tpu_torch.runtime.stream
+import tsl_sdr_tpu_torch.sources
+import tsl_sdr_tpu_torch.sources.hw
+import tsl_sdr_tpu_torch.testing.mock_radios
 from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
 from tsl_sdr_tpu_torch.testing import pager
 from tsl_sdr_tpu_torch.testing import pocsag_gen
@@ -93,6 +98,46 @@ print("NO-JAX CLI OK")
 """
 
 
+_FOLLOW_SCRIPT = _BLOCK + r"""
+import json, os, tempfile, threading
+from pathlib import Path
+import numpy as np
+from tsl_sdr_tpu_torch.cli import pipeline
+from tsl_sdr_tpu_torch.testing import pager, pocsag_gen
+
+bb = pocsag_gen.generate(
+    [pocsag_gen.PocsagBurst(capcode=515151, function=1, kind="alpha",
+                            content="FOLLOW NO JAX")],
+    baud=1200, amplitude=4096, tail_bits=256)
+iq = pager.fm_mod(bb, 38_400, pager.OFFSETS_HZ[2], pager.FS, amp=8000)
+iq = (iq + np.random.default_rng(1).normal(scale=100, size=iq.shape))
+raw = iq.astype(np.int16).tobytes()
+tmp = Path(tempfile.mkdtemp())
+fifo = tmp / "iq.fifo"
+os.mkfifo(fifo)
+cfg = pager.config(str(fifo))
+cfg["channels"] = cfg["channels"][:4]
+(tmp / "cfg.json").write_text(json.dumps(cfg))
+
+def feed():
+    with open(fifo, "wb") as f:
+        for o in range(0, len(raw), 1 << 20):
+            f.write(raw[o:o + (1 << 20)])
+
+t = threading.Thread(target=feed)
+t.start()
+assert pipeline.main([str(tmp / "cfg.json"), "--follow", "--block-size",
+                      "491520", "--device", "cpu",
+                      "-o", str(tmp / "m.jsonl")]) == 0
+t.join(timeout=60)
+msgs = [json.loads(x) for x in (tmp / "m.jsonl").read_text().splitlines()]
+want = pocsag_gen.expected_alpha_decode(b"FOLLOW NO JAX").decode()
+assert [(m["capCode"], m["message"]) for m in msgs] == [(515151, want)], msgs
+""" + _CHECK + r"""
+print("NO-JAX FOLLOW OK")
+"""
+
+
 def _run_no_jax(script: str, token: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -107,6 +152,10 @@ def test_port_runs_without_jax():
 
 def test_decoder_and_resampler_clis_run_without_jax():
     _run_no_jax(_CLI_SCRIPT, "NO-JAX CLI OK")
+
+
+def test_follow_on_a_fifo_runs_without_jax():
+    _run_no_jax(_FOLLOW_SCRIPT, "NO-JAX FOLLOW OK")
 
 
 def test_no_port_file_imports_jax():

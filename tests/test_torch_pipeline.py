@@ -231,8 +231,8 @@ def test_cli_matches_pipeline_tpu(tmp_path, fmt):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--follow"], ["--exact"], ["--state-file", "s.npz"], ["--backend", "xla"],
-    ["--channel-shards", "2"], ["--standby"],
+    ["--time-shards", "2"], ["--exact"], ["--distributed", "h:1"],
+    ["--backend", "xla"], ["--channel-shards", "2"], ["--process-id", "0"],
 ])
 def test_cli_unported_flags_exit_2(tmp_path, capsys, argv):
     rc = torch_cli.main([str(tmp_path / "unused.json"), *argv])

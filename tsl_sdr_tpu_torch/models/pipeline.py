@@ -1,7 +1,8 @@
 """End-to-end receive pipeline: channelize -> resample -> protocol decode.
 
 Port of the production streaming engine of
-``tsl_sdr_tpu/models/pipeline.py`` (``:85-1055, 1294-1358, 1526-1547``).
+``tsl_sdr_tpu/models/pipeline.py`` (``:85-1055, 1294-1547``), with its
+drain worker and its checkpoint/restore.
 Every device stage of a block runs in one call, :meth:`_SizedProgram.dev_step`:
 
 1. widen 8-bit wire bytes;
@@ -18,9 +19,9 @@ The host uploads each block from pinned memory, starts the device->host
 copies of the small gated outputs as soon as the block is queued, keeps
 ``inflight_depth`` blocks in flight, and drains the oldest into the
 POCSAG/FLEX/AIS decoders (``models.{pocsag,flex,ais}``, each on its native
-C++ state machine). The egress
-buffers keep the JAX engine's layout byte for byte, so the drain logic is
-the same code.
+C++ state machine), inline or on a drain worker thread (``drain_async``).
+The egress buffers keep the JAX engine's layout byte for byte, so the
+drain logic is the same code.
 
 Egress gating: a channel whose block raised no sync candidate sends only its
 flag and carried tail; its decoder does no work.
@@ -28,8 +29,13 @@ flag and carried tail; its decoder does no work.
 
 from __future__ import annotations
 
+import json
 import math
+import os
+import queue
+import threading
 import time
+import zlib
 from collections import deque
 from dataclasses import dataclass
 from fractions import Fraction
@@ -104,14 +110,18 @@ def widen_wire(vals: torch.Tensor, wire_fmt: str) -> torch.Tensor:
 class _HostCopy:
     """A device->host copy started now and waited for at :meth:`numpy`:
     into pinned memory with ``non_blocking=True`` and a CUDA event on the
-    card, the tensor itself on the CPU."""
+    card, the tensor itself on the CPU. On the card the copy runs on
+    ``stream`` (default: the current one), which must be the stream ``t``
+    was made on: the caching allocator may hand ``t``'s memory out again
+    once it is freed, ordered only against that stream."""
 
-    def __init__(self, t: torch.Tensor):
+    def __init__(self, t: torch.Tensor, stream=None):
         if t.device.type == "cuda":
             self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
+            with torch.cuda.stream(stream):
+                self._host.copy_(t, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record()
         else:
             self._host = t.contiguous()
             self._event = None
@@ -120,6 +130,33 @@ class _HostCopy:
         if self._event is not None:
             self._event.synchronize()
         return self._host.numpy()
+
+
+def _leaf_key(k) -> str:
+    return "_".join(map(str, k)) if isinstance(k, tuple) else str(k)
+
+
+def _map_state(v, fn, name: str = ""):
+    """Rebuild the stream's device state (dicts and NamedTuples of tensors
+    and host ints) with ``fn(name, leaf)`` applied to every leaf. Names are
+    dotted paths: ``chain.carry_vals``, ``rs.5_12``, ``dc.7.acc``,
+    ``tails.pocsag``."""
+    if isinstance(v, dict):
+        return {k: _map_state(x, fn, f"{name}.{_leaf_key(k)}" if name
+                              else _leaf_key(k)) for k, x in v.items()}
+    if isinstance(v, tuple) and hasattr(v, "_fields"):
+        return type(v)(*(_map_state(getattr(v, f), fn, f"{name}.{f}")
+                         for f in v._fields))
+    return fn(name, v)
+
+
+def _leaf_meta(v) -> tuple:
+    """(shape, numpy dtype name) of a state leaf, read from its metadata
+    alone: a device tensor is not fetched."""
+    if isinstance(v, torch.Tensor):
+        return (list(v.shape),
+                str(torch.empty((), dtype=v.dtype).numpy().dtype))
+    return [], "int64"
 
 
 class _SizedProgram:
@@ -269,6 +306,12 @@ class ReceivePipeline:
     wire_fmt : input wire format; 8-bit formats take raw wire bytes and
         widen on the device
     device : "cuda" (default) or "cpu"; CUDA must be present when asked for
+    drain_async : drain blocks (device->host wait, bit unpack, decoder
+        scans) on a worker thread, so block k's drain overlaps block k+1's
+        upload and dispatch. Messages may then surface on a later push()
+        (flush() always waits for all of them); per-channel order is
+        unchanged (one worker, FIFO), and a worker error raises on the
+        next push(). ``pipeline-torch --follow`` turns it on.
     """
 
     # protocols whose decoders consume ONLY a sign predicate of the PCM, so
@@ -281,7 +324,8 @@ class ReceivePipeline:
                  decimation: int, channels, *, exact: bool = False,
                  block_size: int | None = None,
                  inflight_depth: int = 2, ais_packet_hook=None,
-                 wire_fmt: str = "cs16", device="cuda"):
+                 wire_fmt: str = "cs16", device="cuda",
+                 drain_async: bool = False):
         if exact:
             raise NotImplementedError(
                 "the bit-exact tier is not yet ported to tsl_sdr_tpu_torch")
@@ -296,10 +340,17 @@ class ReceivePipeline:
         self._wire_zero = WIRE_ZERO[wire_fmt]
         # e2e breakdown instrumentation: set ``pipe.timing = {}`` and the
         # engine accumulates HOST-BLOCKED seconds per phase (upload /
-        # dispatch / egress start / drain wait / unpack / decode); the host
-        # loop is serial, so they sum to wall time. None = no overhead.
+        # dispatch / egress start / drain wait / unpack / decode) from
+        # every thread. They sum to wall time only with drain_async=False;
+        # with the worker, its drain phases overlap the dispatch thread's.
+        # None = no overhead.
         self.timing = None
+        self._timing_lock = threading.Lock()
+        self.drain_async = bool(drain_async)
         self._ais_packet_hook = ais_packet_hook
+        # what the checkpoint fingerprint hashes beside the chain's own
+        self._fp_taps = np.asarray(lpf_taps, np.float64)
+        self._fp_center = int(center_freq_hz)
         self.inflight_depth = int(inflight_depth)
         self.channels = list(channels)
         offsets = [c.center_freq_hz - center_freq_hz for c in self.channels]
@@ -422,7 +473,11 @@ class ReceivePipeline:
 
     def stream_reset(self):
         """Forget all streaming state (device carries, input buffer,
-        in-flight blocks). Decoder instances persist."""
+        in-flight blocks). Decoder instances persist. The drain worker, if
+        any, finishes the blocks already handed to it (a synchronous drain
+        would have decoded them by now) and is joined before the stream is
+        forgotten, so no old block reaches a later stream."""
+        self._drain_shutdown()
         self._stream = None
         self._pending_prefix = np.zeros((0, 2), self._wire_dtype)
 
@@ -497,6 +552,89 @@ class ReceivePipeline:
             # flags + tail head (egress gating)
             "hot": {pgid: True for pgid in self._pack_groups},
         }
+        if self.drain_async:
+            self._start_drain_worker(self._stream)
+
+    # -- drain worker ---------------------------------------------------------
+
+    def _start_drain_worker(self, s: dict):
+        """Attach a drain worker to stream dict ``s``: entries queued by
+        :meth:`_drain_entry` are drained into ``s`` (never into a later
+        stream) on one thread, in order."""
+        # bounded: a lagging worker holds push() back instead of letting
+        # undrained device buffers pile up
+        s["dq"] = queue.Queue(maxsize=max(2, self.inflight_depth))
+        s["dres"] = [[] for _ in self.channels]
+        s["dlock"] = threading.Lock()
+        s["derr"] = None
+        cuda_index = (torch.cuda.current_device()
+                      if self.device.type == "cuda"
+                      and self.device.index is None else self.device.index)
+
+        def worker():
+            if cuda_index is not None:
+                # the device (and the current stream) is per thread
+                torch.cuda.set_device(cuda_index)
+            while True:
+                entry = s["dq"].get()
+                if entry is None:
+                    return
+                if isinstance(entry, threading.Event):
+                    entry.set()  # barrier: everything before it is drained
+                    continue
+                if s["derr"] is not None:
+                    continue  # poisoned: discard, the error surfaces on push
+                try:
+                    part = [[] for _ in self.channels]
+                    self._drain(s, entry, part)
+                    with s["dlock"]:
+                        for c, msgs in enumerate(part):
+                            s["dres"][c].extend(msgs)
+                except BaseException as e:  # noqa: BLE001 - re-raised on push
+                    s["derr"] = e
+
+        s["dthread"] = threading.Thread(target=worker, daemon=True,
+                                        name="tsl-drain")
+        s["dthread"].start()
+
+    def _collect(self, s: dict, new: list):
+        """Move the worker's finished results into ``new``; raise its
+        error, if it had one."""
+        if s["derr"] is not None:
+            raise s["derr"]
+        with s["dlock"]:
+            for c, msgs in enumerate(s["dres"]):
+                if msgs:
+                    new[c].extend(msgs)
+                    s["dres"][c] = []
+
+    def _drain_entry(self, s: dict, entry, new: list):
+        """Drain one in-flight block of stream ``s``: inline, or queued to
+        its worker (results ready so far fold into ``new``)."""
+        if s.get("dthread") is None:
+            self._drain(s, entry, new)
+            return
+        self._collect(s, new)
+        s["dq"].put(entry)
+
+    def _drain_barrier(self, s: dict, new: list):
+        """Wait until every block queued to ``s``'s worker is drained and
+        collect the results."""
+        if s.get("dthread") is None:
+            return
+        done = threading.Event()
+        s["dq"].put(done)
+        done.wait()
+        self._collect(s, new)
+
+    def _drain_shutdown(self):
+        """Stop the current stream's worker and join it."""
+        s = self._stream
+        if s is None or s.get("dthread") is None:
+            return
+        s["dq"].put(None)
+        s["dthread"].join()
+        s["dthread"] = None
 
     @property
     def stream_stats(self) -> dict:
@@ -525,7 +663,12 @@ class ReceivePipeline:
             self._dispatch(block)
             s = self._stream
             while len(s["inflight"]) > self.inflight_depth:
-                self._drain(s["inflight"].popleft(), new)
+                self._drain_entry(s, s["inflight"].popleft(), new)
+        # hand back what the worker finished meanwhile, even on a push too
+        # short to complete a block (live latency)
+        s = self._stream
+        if s is not None and s.get("dthread") is not None:
+            self._collect(s, new)
         return new
 
     def _pump_blocks(self, iq):
@@ -566,9 +709,13 @@ class ReceivePipeline:
         return [[] for _ in self.channels]
 
     def _tick(self, key: str, t0: float) -> float:
-        """Accumulate host-blocked seconds into ``self.timing[key]``."""
+        """Accumulate host-blocked seconds into ``self.timing[key]`` (the
+        dispatch thread and the drain worker both call it)."""
         t1 = time.perf_counter()
-        self.timing[key] = self.timing.get(key, 0.0) + (t1 - t0)
+        with self._timing_lock:
+            tm = self.timing
+            if tm is not None:
+                tm[key] = tm.get(key, 0.0) + (t1 - t0)
         return t1
 
     def _upload(self, flat: np.ndarray) -> torch.Tensor:
@@ -621,7 +768,9 @@ class ReceivePipeline:
         raws = {rgid: _HostCopy(rows) for rgid, rows in raw_out.items()}
         if tm is not None:
             self._tick("egress_start_s", t0)
-        s["inflight"].append((prog, pack_out, pre, raws, valid_n))
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        s["inflight"].append((prog, pack_out, pre, raws, valid_n, stream))
 
     def _valid_k(self, prog, i: int, valid_n: int | None) -> int:
         """Real (non-pad) output samples of channel ``i`` for a block whose
@@ -635,16 +784,17 @@ class ReceivePipeline:
         i_, d_ = gid
         return min(k_chain * i_ // d_, prog.k_out[i])
 
-    def _drain(self, entry, new: list):
+    def _drain(self, s: dict, entry, new: list):
+        """Decode one block of stream ``s`` into ``new``: wait for its
+        device->host copies, unpack, splice gaps, scan."""
         tm = self.timing
         if tm is not None:
             t0 = time.perf_counter()
-        prog, pack_out, pre, raw_copies, valid_n = entry
+        prog, pack_out, pre, raw_copies, valid_n, stream = entry
         raws = {rgid: cp.numpy() for rgid, cp in raw_copies.items()}
         if tm is not None:
             t0 = self._tick("drain_wait_s", t0)
 
-        s = self._stream
         s["blocks"] += 1
         for pgid, pg in self._pack_groups.items():
             mb = prog.meta_bytes[pgid]
@@ -675,7 +825,7 @@ class ReceivePipeline:
                     # once (a rare edge) and index on the host
                     if tm is not None:
                         t0 = time.perf_counter()
-                    full = _HostCopy(pack_out[pgid]).numpy()
+                    full = _HostCopy(pack_out[pgid], stream).numpy()
                     packed = full[np.asarray(need_rows), mb:]
                     if tm is not None:
                         t0 = self._tick("drain_wait_s", t0)
@@ -752,7 +902,8 @@ class ReceivePipeline:
                     t0 = self._tick("decode_s", t0)
 
     def flush(self) -> list:
-        """Drain in-flight blocks and process the buffered tail.
+        """Drain in-flight blocks (waiting for the drain worker, if any)
+        and process the buffered tail.
 
         The tail is padded with the wire format's zero level up to the full
         block size (reusing the block's program) and the pad-derived output
@@ -773,8 +924,7 @@ class ReceivePipeline:
             s["buf_len"] = 0
             self._dispatch(block, valid_n=valid)
             padded = True
-        while s["inflight"]:
-            self._drain(s["inflight"].popleft(), new)
+        self._drain_all(s, new)
         if padded:
             # the device carries have consumed pad zeros; a later push()
             # must not splice real samples onto that history
@@ -797,6 +947,138 @@ class ReceivePipeline:
         self.stream_reset()
         self._last_stream_stats = None
         return time.monotonic() - t0
+
+    def _drain_all(self, s: dict, new: list):
+        """Drain every in-flight block of ``s`` and wait for the worker."""
+        while s["inflight"]:
+            self._drain_entry(s, s["inflight"].popleft(), new)
+        self._drain_barrier(s, new)
+
+    # -- streaming checkpoint/resume ----------------------------------------
+
+    def checkpoint_stream(self, path, user_meta: dict | None = None) -> list:
+        """Drain the in-flight blocks and save the streaming state to
+        ``path`` (.npz): the device carries (channelizer history, resampler
+        carries, DC states, prefilter tails) fetched to the host, the host
+        gating state and the buffered input. Returns the messages decoded
+        while draining.
+
+        Decoder state machines are not saved: :meth:`restore_stream`
+        restarts them in SEARCH with a gap on every gated channel, so a
+        burst on air across the checkpoint is lost and everything after it
+        decodes (the protocols synchronise themselves). The file is written
+        to ``path.tmp``, synced, and renamed over ``path``: a crash
+        mid-save leaves the previous checkpoint whole."""
+        s = self._stream
+        if s is None:
+            raise ValueError("no streaming state yet (push something first)")
+        new = [[] for _ in self.channels]
+        self._drain_all(s, new)
+        leaves = []
+        arrays = {}
+
+        def save(name, v):
+            leaves.append([name, *_leaf_meta(v)])
+            arrays[f"state.{name}"] = (v.cpu().numpy()
+                                       if isinstance(v, torch.Tensor)
+                                       else np.asarray(v, np.int64))
+
+        _map_state(s["st"], save)
+        arrays["buf"] = (np.concatenate(s["buf"]) if s["buf"]
+                         else np.zeros((0, 2), self._wire_dtype))
+        arrays["fetched"] = s["fetched"]
+        tail_rows = {}
+        for i, tp in s["tail_pcm"].items():
+            if tp is not None:
+                arrays[f"tailpcm_{i}"] = tp
+                tail_rows[str(i)] = True
+        meta = {
+            "fingerprint": self._stream_fingerprint(),
+            "leaves": leaves,
+            "lead_drop": {str(k): int(v) for k, v in s["lead_drop"].items()},
+            "hot": {str(k): bool(v) for k, v in s["hot"].items()},
+            "blocks": s["blocks"],
+            "tail_rows": tail_rows,
+            "user": user_meta or {},
+        }
+        arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
+                                           dtype=np.uint8)
+        tmp = f"{path}.tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        return new
+
+    def restore_stream(self, path) -> dict:
+        """Rebuild the streaming state from a :meth:`checkpoint_stream`
+        file and return the ``user_meta`` it was saved with. The pipeline
+        must be configured as the one that wrote it (the fingerprint and
+        every state leaf's name, shape and dtype are checked); the file may
+        come from either device. Decoders are recreated in SEARCH and every
+        gated channel is marked gapped, so its next fetched block splices
+        the saved tail and notifies the gap."""
+        with np.load(path) as data:
+            meta = json.loads(bytes(data["__meta__"]).decode())
+            arrays = {k: data[k] for k in data.files if k != "__meta__"}
+        if meta["fingerprint"] != self._stream_fingerprint():
+            raise ValueError(
+                "checkpoint was written by a differently-configured "
+                f"pipeline: {meta['fingerprint']} != "
+                f"{self._stream_fingerprint()}")
+        self.stream_reset()
+        self._stream_init(None)
+        s = self._stream
+        want = []
+        _map_state(s["st"], lambda n, v: want.append([n, *_leaf_meta(v)]))
+        if meta["leaves"] != want:
+            self.stream_reset()     # leave no half-made stream behind
+            raise ValueError(f"checkpoint state {meta['leaves']} does not "
+                             f"match this pipeline's {want}")
+
+        def load(name, tmpl):
+            arr = arrays[f"state.{name}"]
+            if isinstance(tmpl, torch.Tensor):
+                return torch.from_numpy(np.array(arr)).to(self.device)
+            return int(arr)
+
+        s["st"] = _map_state(s["st"], load)
+        buf = arrays["buf"]
+        s["buf"] = [buf] if buf.shape[0] else []
+        s["buf_len"] = int(buf.shape[0])
+        s["lead_drop"] = {int(k): int(v) for k, v in meta["lead_drop"].items()}
+        s["hot"] = dict(meta["hot"])
+        s["blocks"] = int(meta["blocks"])
+        s["fetched"] = np.array(arrays["fetched"])
+        # the state machines were not saved: recreate them, so they do
+        # restart in SEARCH (notify_gap is only valid there)
+        for i, spec in enumerate(self.channels):
+            if self._decoders[i] is not None:
+                self._decoders[i] = _make_decoder(
+                    spec.protocol, spec.center_freq_hz, self._ais_packet_hook)
+        for i in s["gap"]:
+            s["gap"][i] = True
+            s["tail_pcm"][i] = (arrays[f"tailpcm_{i}"]
+                                if meta["tail_rows"].get(str(i)) else None)
+        return meta.get("user", {})
+
+    def _stream_fingerprint(self) -> str:
+        """Every constant that changes what the saved carries mean: restored
+        under another filter, gain, rate or pole they would decode wrongly
+        with no error. The JAX package's fields, with ``engine=torch`` in
+        place of its ``backend=``, so its checkpoints are refused here."""
+        taps_crc = zlib.crc32(self._fp_taps.tobytes())
+        return (
+            f"bs={self.block_size};engine=torch;"
+            f"fc={self._fp_center};fs={self.chain.sample_rate:.6f};"
+            f"decim={self.chain.decimation};taps={taps_crc:08x};"
+            + (f"wire={self.wire_fmt};" if self.wire_fmt != "cs16" else "")
+            + ";".join(
+                f"{c.center_freq_hz}:{c.protocol}:{int(c.invert)}:"
+                f"{int(c.dc_block)}:{c.dc_block_pole!r}:{c.db_gain!r}"
+                for c in self.channels)
+        )
 
     # -- whole-capture API ---------------------------------------------------
 

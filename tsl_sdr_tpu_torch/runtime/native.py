@@ -8,8 +8,9 @@ are built too and bound when a ported stage needs them.
 
 The library is built with ``g++`` at first use into
 ``build/tsl_sdr_tpu_torch/`` beside the package, under a name keyed on a
-hash of the source and the flags, so a changed source rebuilds and the
-package directory is never written. Processes that share a checkout (test
+hash of the source and the command, so a changed source rebuilds and the
+package directory is never written (:func:`build_shared`, which also
+builds the UHD shim and the mock radios). Processes that share a checkout (test
 workers) build one at a time under an ``fcntl`` lock, each to a temporary
 name that is then renamed into place. A failed build raises. The library
 is loaded with ctypes' default ``RTLD_LOCAL``, so it coexists in one
@@ -64,24 +65,47 @@ SIGNATURES = {
 }
 
 
+def _keyed_path(src: Path, stem: str, command) -> Path:
+    h = hashlib.sha256(" ".join(command).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
+
+
 def lib_path() -> Path:
     """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD_DIR / f"libtslstream-{h.hexdigest()[:16]}.so"
+    return _keyed_path(SRC, "tslstream", ["g++", *CXX_FLAGS])
 
 
-def _build(path: Path) -> None:
-    tmp = path.with_name(f"{path.stem}.tmp{os.getpid()}.so")
-    try:
-        res = subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"building {SRC.name} failed "
-                               f"({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, path)
-    finally:
-        tmp.unlink(missing_ok=True)
+def build_shared(src: Path, stem: str, compiler: str, flags,
+                 libs=()) -> Path:
+    """Build C/C++ ``src`` into a shared library in ``BUILD_DIR`` (named
+    ``lib<stem>-<hash of source and command>.so``) unless it is there, and
+    return its path. A missing compiler or a failed build raises
+    RuntimeError."""
+    path = _keyed_path(src, stem, [compiler, *flags, *libs])
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{stem}.lock", "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if path.exists():
+            return path
+        tmp = path.with_name(f"{path.stem}.tmp{os.getpid()}.so")
+        try:
+            try:
+                res = subprocess.run(
+                    [compiler, *flags, str(src), "-o", str(tmp), *libs],
+                    capture_output=True, text=True)
+            except FileNotFoundError as e:
+                raise RuntimeError(f"building {src.name} needs {compiler}, "
+                                   "which is not installed") from e
+            if res.returncode != 0:
+                raise RuntimeError(f"building {src.name} failed "
+                                   f"({res.returncode}):\n{res.stderr}")
+            os.replace(tmp, path)
+        finally:
+            tmp.unlink(missing_ok=True)
+    return path
 
 
 def load() -> ctypes.CDLL:
@@ -91,14 +115,8 @@ def load() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        path = lib_path()
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            with open(BUILD_DIR / "tslstream.lock", "w") as lk:
-                fcntl.flock(lk, fcntl.LOCK_EX)
-                if not path.exists():
-                    _build(path)
-        lib = ctypes.CDLL(str(path))
+        lib = ctypes.CDLL(str(build_shared(SRC, "tslstream", "g++",
+                                           CXX_FLAGS)))
         for name, (restype, argtypes) in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.restype = restype

@@ -101,6 +101,19 @@ def burst(channel: int, capcode: int, text: str):
     return fm_mod(bb, 16_000, off, FS, amp=4000), (capcode, text)
 
 
+def _message(ch: int):
+    """The (capcode, text) that :func:`capture` sends on channel ``ch``."""
+    return (1_100_000 + 1_000 * ch + (8 if PROTOCOLS[ch] == "flex" else 0),
+            f"{PROTOCOLS[ch].upper():6s} CH{ch}!")
+
+
+def burst_spans(starts):
+    """[start, end) in wideband samples of each burst :func:`capture` makes
+    from ``starts``."""
+    return [(start, start + len(burst(ch, *_message(ch))[0]))
+            for ch, start in enumerate(starts)]
+
+
 def capture(n_samples: int, starts, *, seed: int = 0, noise: float = 80.0):
     """A cs16 capture of ``n_samples`` with burst ``k`` on channel ``k`` at
     wideband sample ``starts[k]``. Returns (iq int16 [n, 2], expected:
@@ -109,9 +122,7 @@ def capture(n_samples: int, starts, *, seed: int = 0, noise: float = 80.0):
     x = rng.normal(scale=noise, size=(n_samples, 2))
     expected = [[] for _ in OFFSETS_HZ]
     for ch, start in enumerate(starts):
-        capcode = 1_100_000 + 1_000 * ch + (8 if PROTOCOLS[ch] == "flex"
-                                            else 0)
-        sig, exp = burst(ch, capcode, f"{PROTOCOLS[ch].upper():6s} CH{ch}!")
+        sig, exp = burst(ch, *_message(ch))
         if start + len(sig) > n_samples:
             raise ValueError(f"channel {ch}'s burst ends at sample "
                              f"{start + len(sig)}, past the capture's end")
