@@ -10,7 +10,8 @@ the port's main paths: the receive pipeline at the 8-channel pager
 deployment (``tsl_sdr_tpu_torch/testing/pager.py``: 1.2288 Msps, decimate by
 32, 577 taps, 6 POCSAG + 2 FLEX channels, 4,177,920-sample blocks), the
 decoder front end (``decoder-torch``, ``resampler-torch``) at the
-reference's resampler settings, and the pipeline at decimation 50:
+reference's resampler settings, the pipeline at decimation 50, the
+bit-exact tier, and ``multifm-torch`` at ``etc/multifm_rtlsdr_8ch.json``:
 
 1. the card's name and power limit; the kernels' build (nvcc) and the
    decoders' native state machines (g++);
@@ -80,9 +81,30 @@ reference's resampler settings, and the pipeline at decimation 50:
    gcc) delivering the capture's rtl_u8 bytes; (e) ``--realtime`` on the
    capture file, each message's delay from the delivery of its burst's
    last sample, under (inflight_depth + 2) blocks. Every run must decode
-   phase 4's messages on native decoders.
+   phase 4's messages on native decoders;
+13. K5 (the bit-exact tier's packed FIR, ``csrc/chain.cu``'s integer
+   epilogues on K1's main loop) against its plain version, both epilogues
+   (Q.14 planes, raw int32 sums), at the pager block and at
+   ``multifm_rtlsdr_8ch``'s 262,144-sample block, each also with a ragged
+   last tile, on adversarial input, and as two halves against the whole:
+   exactly equal; its times beside its plain version's, one float64
+   ``torch.matmul`` of the same product and its bound; the host rotator's
+   cost a pager block (native sequence, upload);
+14. the bit-exact pipeline on phase 4's capture (with a ``pcm`` channel):
+   cs16 through ``pipeline-torch --exact`` and rtl_u8 through
+   ``ReceivePipeline(exact=True).push/flush``, then the same at decimation
+   50; every burst must decode, and the pcm channel must equal, bit for
+   bit, the same run with every kernel swapped for its plain version;
+15. a POCSAG + FLEX + AIS capture through ``pipeline-torch``, production
+   and ``--exact``: all three bursts, the AIS one included, must decode;
+16. ``multifm-torch`` on ``etc/multifm_rtlsdr_8ch.json`` fed a synthetic
+   rtl_u8 capture with one POCSAG burst per channel: both tiers under both
+   I/O runtimes, and the production tier through the mock RTL-SDR; each
+   channel's PCM must decode its burst, and each tier's PCM must equal the
+   plain-version run byte for byte; walls and Msps per run.
 
-Each path of phases 4, 8, 9, 10 and each run of phase 12 runs with the
+Each path of phases 4, 8, 9, 10, 14, 15 and 16 and each run of phase 12
+runs with the
 kernels' launch counts set to 0 just before it and read just after; a
 kernel of the path that never launched fails the run. jax, jaxlib and
 the JAX package (``tsl_sdr_tpu``) are made unimportable first, and none
@@ -205,10 +227,12 @@ def launch_counts() -> dict:
     """Every kernel wrapper's launch count."""
     from tsl_sdr_tpu_torch.ops import chain as k1
     from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
+    from tsl_sdr_tpu_torch.ops import exact_fir as k5
     from tsl_sdr_tpu_torch.ops import frame_resampler as k4
     from tsl_sdr_tpu_torch.ops import row_resampler as k3
 
     return {"chain_fm": k1.chain_fm.launches,
+            "exact_fir": k5.exact_fir.launches,
             "row_resample": k3.row_resample.launches,
             "row_resample_q14": k3.row_resample.launches_q14,
             "frame_resample": k4.frame_resample.launches,
@@ -218,10 +242,12 @@ def launch_counts() -> dict:
 def zero_launch_counts() -> None:
     from tsl_sdr_tpu_torch.ops import chain as k1
     from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
+    from tsl_sdr_tpu_torch.ops import exact_fir as k5
     from tsl_sdr_tpu_torch.ops import frame_resampler as k4
     from tsl_sdr_tpu_torch.ops import row_resampler as k3
 
     k1.chain_fm.launches = 0
+    k5.exact_fir.launches = 0
     k3.row_resample.launches = 0
     k3.row_resample.launches_q14 = 0
     k4.frame_resample.launches = 0
@@ -327,6 +353,15 @@ def bound(int16_macs: float, nbytes: float, core_ops: float = 0.0):
     t_bytes = nbytes / HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def fir_macs(plan, rows: int) -> int:
+    """The int16 multiply-adds that K1's and K5's product needs for
+    ``rows`` packed rows: each of a row's 2*halfcols columns sums its
+    2*nr_taps non-zero taps (re and im value of each tap). The rest of
+    the plan's ``win``-value window is zeros of its layout (the shift of
+    a row's later outputs), which the kernels multiply but need not."""
+    return rows * 2 * plan.halfcols * 2 * plan.nr_taps
 
 
 def nbytes(*tensors) -> int:
@@ -1445,8 +1480,580 @@ def front_end(device, totals: dict) -> dict:
     }
 
 
+# -- phases 13-16: the bit-exact tier, AIS and multifm-torch --------------
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper swapped for its plain torch version wherever a
+    module of the port calls it (the same run with no hand kernel: the
+    reference a card run is held to, there being no JAX on the card)."""
+    from tsl_sdr_tpu_torch.models import channelizer, resampler
+    from tsl_sdr_tpu_torch.ops import chain as k1
+    from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
+    from tsl_sdr_tpu_torch.ops import exact_fir as k5
+    from tsl_sdr_tpu_torch.ops import frame_resampler as k4
+    from tsl_sdr_tpu_torch.ops import polyphase
+    from tsl_sdr_tpu_torch.ops import row_resampler as k3
+
+    plain = {"chain_fm": k1.chain_fm_plain, "exact_fir": k5.exact_fir_plain,
+             "row_resample": k3.row_resample_plain,
+             "frame_resample": k4.frame_resample_plain,
+             "dc_block_exact": dcb.dc_block_exact_plain}
+    before = launch_counts()
+    saved = []
+    for mod in (channelizer, resampler, polyphase, k4, dcb):
+        for name, fn in plain.items():
+            if hasattr(mod, name):
+                saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    require(launch_counts() == before,
+            f"a kernel launched with every kernel swapped for its plain "
+            f"version: {before} -> {launch_counts()}")
+
+
+def k5_library(taps, carry, block):
+    """One float64 ``torch.matmul`` computing K5's product (the library
+    yardstick; the port never calls it): the stream's overlapping windows
+    of (cr + 1) rows as one [rows, (cr + 1) * ROW] matrix, converted and
+    laid out beforehand, against the stacked tap chunks."""
+    import torch
+
+    plan = taps.plan
+    total = torch.cat([carry, block]).to(torch.float64)
+    rows = block.numel() // plan.row
+    k = (plan.cr_rows + 1) * plan.row
+    a = total.as_strided((rows, k), (plan.row, 1)).contiguous()
+    w = taps.w_f64.reshape(k, -1).contiguous()
+    return lambda: torch.matmul(a, w)
+
+
+def check_exact_fir(shapes: dict, device):
+    """Phase 13: K5 against its plain version, both epilogues (q14 and
+    raw), EXACTLY equal, at each ``shapes`` entry (name -> (chain, flat
+    values of carry ++ block)); a block with a ragged last tile; the
+    adversarial input (all -32768 against taps of +-32767); two halves of
+    a block against the whole. Returns the largest difference (0)."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import exact_fir as k5
+
+    worst = 0
+    for name, (chain, vals) in shapes.items():
+        taps = chain.taps
+        plan = taps.plan
+        tr = taps.tile_rows
+        rows = (vals.size - plan.carry_vals) // plan.row
+        cases = {
+            name: (taps, vals),
+            f"{name}, ragged (7 rows short)": (taps, vals[:-7 * plan.row]),
+            f"{name}, adversarial (-32768 against +-32767 taps)": (
+                adversarial_chain_taps(taps),
+                np.full(plan.carry_vals + (3 * tr + 5) * plan.row, -32768,
+                        np.int16)),
+        }
+        log(f"K5 shapes ({name}): ROW={plan.row} cr={plan.cr_rows} "
+            f"U={plan.win} halfcols={plan.halfcols} tile_rows={tr}; {rows} "
+            f"rows ({rows % tr} in the last tile)")
+        for case, (tp, v) in cases.items():
+            v = torch.from_numpy(v.copy()).to(device)
+            carry, block = v[:plan.carry_vals], v[plan.carry_vals:]
+            for out in ("q14", "raw"):
+                got = k5.exact_fir(tp, carry, block, out)
+                ref = k5.exact_fir_plain(tp, carry, block, out)
+                if out == "q14":
+                    got, ref = torch.stack(got), torch.stack(ref)
+                err = max_err(got, ref)
+                log(f"K5 vs plain, {case} ({out}): {list(got.shape)} "
+                    f"max|diff|={err:g}")
+                require(err == 0, f"K5 {case} {out}: max diff {err}")
+                worst = max(worst, err)
+            if tp is not taps or "ragged" in case:
+                continue
+            half = (block.numel() // plan.row // 2) * plan.row
+            a = k5.exact_fir(taps, carry, block[:half])
+            b = k5.exact_fir(taps, block[half - plan.carry_vals:half]
+                             .contiguous(), block[half:])
+            whole = k5.exact_fir(taps, carry, block)
+            require(all(torch.equal(torch.cat([a[i], b[i]]), whole[i])
+                        for i in range(2)),
+                    f"K5 {case}: two halves differ from the whole block")
+            log(f"K5 ({case}): two halves == whole block")
+    return worst
+
+
+def time_exact_fir(chain, vals, device) -> dict:
+    """K5's device time at the pager block beside its plain version's and
+    one float64 torch.matmul of the same product, its call time, and its
+    bound (the product's non-zero multiply-adds; the block in, the two
+    int16 planes out)."""
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import exact_fir as k5
+
+    taps = chain.taps
+    plan = taps.plan
+    v = torch.from_numpy(vals.copy()).to(device)
+    carry, block = v[:plan.carry_vals], v[plan.carry_vals:]
+    t = kernel_times(lambda: k5.exact_fir_plain(taps, carry, block),
+                     lambda: k5.exact_fir(taps, carry, block), 5, 50,
+                     library=k5_library(taps, carry, block))
+    rows = block.numel() // plan.row
+    t["bound_ms"], t["bound_by"] = bound(
+        fir_macs(plan, rows), nbytes(carry, block, taps.w_hi, taps.w_lo)
+        + 2 * rows * plan.halfcols * 2)
+    log(f"K5 pager block ({rows} rows): kernel {t['ms']:.4f} ms (call "
+        f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f} ms, f64 "
+        f"torch.matmul {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} "
+        f"ms ({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of it")
+    return t
+
+
+def time_rotator(chain, rows: int, device) -> dict:
+    """What the exact tier's host rotator costs a block of ``rows`` K5 rows:
+    the native serial sequence's wall ms on the host, and its upload's
+    (pinned staging and the host->device copy, synchronised), 10 runs
+    each after one warm-up."""
+    from tsl_sdr_tpu_torch.models.channelizer import upload
+    from tsl_sdr_tpu_torch.runtime.native import rotator_seq
+
+    plan = chain.packed_plan
+    k = rows * plan.halfcols // chain.nr_channels
+    rot = chain.init_exact_packed_state().rot
+    reps = 10
+    seq = rotator_seq(rot, plan.rot_incr_i32, k)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        seq = rotator_seq(rot, plan.rot_incr_i32, k)
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    upload(seq, device)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        upload(seq, device)
+    _sync(device)
+    upload_ms = (time.perf_counter() - t0) / reps * 1e3
+    res = {"outputs": k, "bytes": seq.nbytes, "host_ms": host_ms,
+           "upload_ms": upload_ms}
+    log(f"exact tier's rotator, one pager block ({k} outputs x "
+        f"{chain.nr_channels} channels, {seq.nbytes} B): native sequence "
+        f"{host_ms:.3f} ms on the host, upload {upload_ms:.3f} ms")
+    return res
+
+
+def exact_pipeline_run(mod_specs, lpf, decimation, iq, expected, device,
+                       tmp: Path, name: str, pcm_offset: int):
+    """Phase 14 for one deployment: the bit-exact tier with a ``pcm``
+    channel added at ``pcm_offset``, cs16 through ``pipeline-torch
+    --exact`` and rtl_u8 wire bytes through ``ReceivePipeline(exact=True)
+    .push/flush``; every burst must decode (native decoders), and each
+    run's pcm channel must equal, bit for bit, the same run with every
+    kernel swapped for its plain version. Returns the walls."""
+    import numpy as np
+
+    from tsl_sdr_tpu_torch.cli import pipeline as cli
+    from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
+    from tsl_sdr_tpu_torch.testing import pager
+
+    specs = [*mod_specs, ChannelSpec(pager.CENTER_HZ + pcm_offset, "pcm")]
+    want = sorted((s.center_freq_hz, cap, text)
+                  for s, exp in zip(specs, expected) for cap, text in exp)
+    cap_path = tmp / f"{name}.cs16"
+    iq.reshape(-1).tofile(cap_path)
+    cfg = {
+        "device": {"type": "file", "filename": str(cap_path),
+                   "fileFormat": "cs16"},
+        "sampleRateHz": pager.FS, "centerFreqHz": pager.CENTER_HZ,
+        "decimationFactor": decimation,
+        "lpfTaps": [float(t) for t in lpf],
+        "channels": [{"chanCenterFreq": s.center_freq_hz,
+                      "protocol": s.protocol, "dcBlock": s.dc_block}
+                     for s in specs],
+    }
+
+    def cli_run(tag):
+        cfg["channels"][-1]["outFifo"] = str(tmp / f"{name}_{tag}.pcm")
+        cfg_path = tmp / f"{name}_{tag}.json"
+        cfg_path.write_text(json.dumps(cfg))
+        out_path = tmp / f"{name}_{tag}.jsonl"
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main([str(cfg_path), "--exact", "-o", str(out_path),
+                           "--device", device])
+        wall = time.perf_counter() - t0
+        require(rc == 0, f"pipeline-torch --exact exited {rc}: "
+                f"{err.getvalue()}")
+        require_native(f"pipeline-torch --exact ({name})",
+                       cli_tiers(err.getvalue()))
+        got = sorted((m["freqHz"], m["capCode"], m["message"].rstrip("\0"))
+                     for m in map(json.loads,
+                                  out_path.read_text().splitlines()))
+        pcm = np.fromfile(tmp / f"{name}_{tag}.pcm", np.int16)
+        return got, pcm, wall
+
+    def push_run():
+        pipe = ReceivePipeline(lpf, pager.CENTER_HZ, pager.FS, decimation,
+                               specs, exact=True, wire_fmt="rtl_u8",
+                               device=device)
+        require_native(f"ReceivePipeline(exact=True) ({name})",
+                       pipe.decoder_tiers)
+        flat = pager.to_rtl_u8(iq).reshape(-1)
+        # wire bytes, two per sample: an even step keeps pushes whole
+        step = (pipe.block_size * 2 // 3 + 1234) // 2 * 2
+        results = [[] for _ in specs]
+        t0 = time.perf_counter()
+        for lo in range(0, flat.size, step):
+            for i, part in enumerate(pipe.push(flat[lo:lo + step])):
+                results[i].extend(part)
+        for i, part in enumerate(pipe.flush()):
+            results[i].extend(part)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        got = sorted((f, c, t.rstrip("\0")) for f, c, t in
+                     message_keys(results[:-1], specs[:-1]))
+        return got, np.concatenate(results[-1]), wall
+
+    res = {}
+    for tag, fn in (("cli", cli_run), ("push", push_run)):
+        got, pcm, wall = fn(tag) if tag == "cli" else fn()
+        require(got == [(f, c, t.rstrip("\0")) for f, c, t in want],
+                f"exact {name} {tag} decoded {got}, expected {want}")
+        with plain_kernels():
+            _, pcm_plain, plain_wall = (fn(f"{tag}_plain") if tag == "cli"
+                                        else fn())
+        require(pcm.size > 0 and pcm.tobytes() == pcm_plain.tobytes(),
+                f"exact {name} {tag}: the pcm channel ({pcm.size} samples) "
+                f"differs from the plain-version run ({pcm_plain.size})")
+        res[tag] = {"wall_s": wall, "plain_wall_s": plain_wall,
+                    "msps": iq.shape[0] / wall / 1e6,
+                    "pcm_samples": int(pcm.size)}
+        log(f"exact {name} ({'cs16 pipeline-torch --exact' if tag == 'cli' else 'rtl_u8 push/flush'}): "
+            f"{len(got)} bursts decoded, {iq.shape[0]} samples in "
+            f"{wall:.3f} s ({res[tag]['msps']:.2f} Msps); pcm channel "
+            f"{pcm.size} samples == plain-version run ({plain_wall:.3f} s)")
+    return res
+
+
+def ais_capture():
+    """POCSAG + FLEX + AIS bursts and an inverted audio channel at 1.2288
+    Msps / 32 (tests/test_torch_pipeline.py's deployment), made with the
+    port's generators: (config channels, iq, expected (freq, kind))."""
+    import numpy as np
+
+    from tsl_sdr_tpu_torch.testing import ais_gen, flex_gen, pager, \
+        pocsag_gen
+
+    fs, c = pager.FS, pager.CENTER_HZ
+    p_bb = pocsag_gen.generate(
+        [pocsag_gen.PocsagBurst(capcode=1122334, function=2, kind="alpha",
+                                content="AIS RUN POCSAG")],
+        baud=1200, amplitude=4096, tail_bits=256)
+    f_bb, _ = flex_gen.generate(
+        [flex_gen.FlexBurstMessage(capcode=1234567, kind="alnum",
+                                   content="AIS RUN FLEX")],
+        baud=1600, fsk_levels=2, amplitude=6144, tail_bits=300)
+    a_bb = ais_gen.generate(
+        [ais_gen.make_position_report(367999111, longitude=-70.9,
+                                      latitude=42.36)], amplitude=9000)
+    parts = [pager.fm_mod(p_bb, 38_400, 250_000, fs, amp=9000),
+             pager.fm_mod(f_bb, 16_000, -180_000, fs, amp=7000),
+             pager.fm_mod(a_bb, 48_000, 400_000, fs, amp=7000, dev_hz=4800)]
+    iq = np.zeros((max(map(len, parts)) + 600_000, 2))
+    for p in parts:
+        iq[300_000:300_000 + len(p)] += p
+    iq += np.random.default_rng(21).normal(scale=120, size=iq.shape)
+    iq = np.clip(np.round(iq), -32768, 32767).astype(np.int16)
+    channels = [
+        {"chanCenterFreq": c + 250_000, "protocol": "pocsag"},
+        {"chanCenterFreq": c - 180_000, "protocol": "flex", "dcBlock": True},
+        {"chanCenterFreq": c + 400_000, "protocol": "ais"},
+        {"chanCenterFreq": c - 50_000, "protocol": "pcm", "invert": True},
+    ]
+    return channels, iq
+
+
+def ais_runs(device, tmp: Path, totals: dict) -> dict:
+    """Phase 15: the POCSAG + FLEX + AIS capture through ``pipeline-torch``,
+    production and ``--exact``: all three bursts decode, the AIS one
+    included, on native decoders."""
+    from tsl_sdr_tpu_torch.cli import pipeline as cli
+    from tsl_sdr_tpu_torch.testing import pager
+    from tsl_sdr_tpu_torch.utils.filter_design import firdes_low_pass
+
+    channels, iq = ais_capture()
+    cap_path = tmp / "ais.cs16"
+    iq.tofile(cap_path)
+    cfg = {"device": {"type": "file", "filename": str(cap_path),
+                      "fileFormat": "cs16"},
+           "sampleRateHz": pager.FS, "centerFreqHz": pager.CENTER_HZ,
+           "decimationFactor": pager.DECIMATION,
+           "lpfTaps": [float(t) for t in
+                       firdes_low_pass(1.0, pager.FS, 12_000, 8_000)],
+           "channels": channels}
+    cfg_path = tmp / "ais.json"
+    cfg_path.write_text(json.dumps(cfg))
+    res = {}
+    for tier, flags, kernels in (
+            ("production", [], ("chain_fm", "row_resample")),
+            ("exact", ["--exact"], ("exact_fir", "row_resample_q14",
+                                    "dc_block_exact"))):
+        out = tmp / f"ais_{tier}.jsonl"
+
+        def run():
+            err = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main([str(cfg_path), *flags, "-o", str(out),
+                               "--device", device])
+            require(rc == 0, f"pipeline-torch {flags} on the AIS capture "
+                    f"exited {rc}: {err.getvalue()}")
+            require_native(f"pipeline-torch {tier} (AIS capture)",
+                           cli_tiers(err.getvalue()))
+            return time.perf_counter() - t0
+
+        wall = on_path(f"the AIS capture, {tier}", kernels, run, totals)
+        msgs = [json.loads(x) for x in out.read_text().splitlines()]
+        got = sorted((m["proto"], m.get("mmsi", m.get("capCode")))
+                     for m in msgs)
+        want = [("ais", 367999111), ("flex", 1234567), ("pocsag", 1122334)]
+        require(got == want, f"the AIS capture ({tier}) decoded {got}, "
+                f"expected {want}")
+        ais = next(m for m in msgs if m["proto"] == "ais")
+        log(f"AIS capture, {tier}: {len(msgs)} messages in {wall:.3f} s; "
+            f"AIS {ais['type']} mmsi {ais['mmsi']} at "
+            f"{ais['geoPosition']}")
+        res[tier] = wall
+    return res
+
+
+# etc/multifm_rtlsdr_8ch.json's channels; burst k starts at MULTIFM_STARTS[k]
+# (wideband samples at 1 Msps). Channels 2 and 4 sit 26 kHz apart and are
+# on air one after the other.
+MULTIFM_STARTS = (100_000, 250_000, 100_000, 400_000, 1_500_000, 550_000,
+                  700_000, 850_000)
+
+
+def multifm_capture(cfg):
+    """rtl_u8 wire bytes of one POCSAG burst per channel of ``cfg`` (a
+    MultifmConfig). Returns (u8 [n, 2], expected (capcode, text) per
+    channel)."""
+    import numpy as np
+
+    from tsl_sdr_tpu_torch.testing import pager, pocsag_gen
+
+    fs = cfg.sample_rate_hz
+    sigs, expected = [], []
+    for k, off in enumerate(cfg.channel_offsets_hz):
+        cap, text = 1_200_000 + 100 * k, f"MULTIFM 8CH CH{k}"
+        bb = pocsag_gen.generate(
+            [pocsag_gen.PocsagBurst(capcode=cap, function=1, kind="alpha",
+                                    content=text)],
+            baud=1200, amplitude=4096, tail_bits=256)
+        sigs.append(pager.fm_mod(bb, 38_400, off, fs, amp=2000))
+        expected.append((cap, text))
+    n = max(s + len(x) for s, x in zip(MULTIFM_STARTS, sigs)) + 300_000
+    iq = np.random.default_rng(12).normal(scale=60, size=(n, 2))
+    for s, x in zip(MULTIFM_STARTS, sigs):
+        iq[s:s + len(x)] += x
+    return pager.to_rtl_u8(iq), expected
+
+
+def decode_25k(pcm, device):
+    """POCSAG messages of 25 kHz channel PCM: resampled 192/125 to the
+    decoder's 38,400 Hz (etc/pocsag_38400_from_25k.json's filter, exact
+    tier), then the native decoder."""
+    from tsl_sdr_tpu_torch.models.pocsag import PocsagDecoder
+    from tsl_sdr_tpu_torch.models.resampler import ResamplerChain
+    from tsl_sdr_tpu_torch.utils.config import load_lpf_coeffs
+
+    rs = ResamplerChain(load_lpf_coeffs(HERE / "etc"
+                                        / "pocsag_38400_from_25k.json"),
+                        192, 125, exact=True, device=device)
+    dec = PocsagDecoder()
+    require(dec._nat is not None, "POCSAG decoder is not on its native tier")
+    return [(m.capcode, m.data.rstrip(b"\0").decode())
+            for m in dec.scan(rs.process_array(pcm))]
+
+
+def multifm_runs(device, tmp: Path, totals: dict) -> dict:
+    """Phase 16: ``multifm-torch`` on etc/multifm_rtlsdr_8ch.json (1 Msps,
+    decimation 40, 365 taps, 8 channels) fed the rtl_u8 capture through
+    ``--iq-file``: both tiers under both I/O runtimes, and the production
+    tier through the mock RTL-SDR; every channel's PCM must decode its
+    burst; each tier's PCM must equal, byte for byte, the same run with the
+    kernels swapped for their plain versions (K5's for the exact tier, K1
+    against chain_fm_plain for the production tier). Walls and Msps per
+    run."""
+    import os
+
+    import numpy as np
+
+    from tsl_sdr_tpu_torch.cli import multifm
+    from tsl_sdr_tpu_torch.testing import mock_radios
+    from tsl_sdr_tpu_torch.utils.config import MultifmConfig
+
+    base = HERE / "etc" / "multifm_rtlsdr_8ch.json"
+    cfg = MultifmConfig.load(base)
+    wire, expected = multifm_capture(cfg)
+    wire_path = tmp / "mf8.u8"
+    wire.tofile(wire_path)
+    n = wire.shape[0]
+    nch = len(cfg.channels)
+
+    def run(tag, flags, kernels, plain=False, mock=False):
+        over = tmp / f"mf_{tag}.json"
+        doc = {"channels": [{"outFifo": str(tmp / f"mf_{tag}_ch{k}.pcm"),
+                             "chanCenterFreq": ch.chan_center_freq}
+                            for k, ch in enumerate(cfg.channels)]}
+        over.write_text(json.dumps(doc))
+        argv = [str(base), str(over), "--device", device, *flags]
+        if not mock:
+            argv += ["--iq-file", str(wire_path), "--iq-format", "rtl_u8"]
+
+        def go():
+            err = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                if plain:
+                    with plain_kernels():
+                        rc = multifm.main(argv)
+                else:
+                    rc = multifm.main(argv)
+            wall = time.perf_counter() - t0
+            require(rc == 0, f"multifm-torch {tag} exited {rc}: "
+                    f"{err.getvalue()}")
+            return wall
+
+        wall = (go() if plain else
+                on_path(f"multifm-torch {tag}", kernels, go, totals))
+        pcm = [np.fromfile(tmp / f"mf_{tag}_ch{k}.pcm", np.int16)
+               for k in range(nch)]
+        return pcm, wall
+
+    res = {}
+    pcms = {}
+    for tier, flags, kernels in (("exact", ["--exact"], ("exact_fir",)),
+                                 ("production", [], ("chain_fm",))):
+        for runtime in ("native", "python"):
+            tag = f"{tier}_{runtime}"
+            pcm, wall = run(tag, [*flags, "--runtime", runtime], kernels)
+            for k in range(nch):
+                got = decode_25k(pcm[k], device)
+                require(got == [expected[k]], f"multifm-torch {tag} channel "
+                        f"{k} decoded {got}, expected {expected[k]}")
+            pcms[tag] = pcm
+            res[tag] = {"wall_s": wall, "msps": n / wall / 1e6,
+                        "samples": int(n)}
+            log(f"multifm-torch {tag}: 8 of 8 channels decode; {n} samples "
+                f"in {wall:.3f} s = {n / wall / 1e6:.2f} Msps")
+        # the plain-version run (python runtime) against the kernels' run
+        pcm, wall = run(f"{tier}_plain", [*flags, "--runtime", "python"], (),
+                        plain=True)
+        for k in range(nch):
+            require(pcm[k].tobytes() == pcms[f"{tier}_python"][k].tobytes(),
+                    f"multifm-torch {tier} channel {k}: PCM differs from the "
+                    f"plain-version run")
+        # the native runtime consumes to quantum granularity, the python
+        # one drops the sub-block tail: their common prefix is the same
+        for k in range(nch):
+            a, b = pcms[f"{tier}_native"][k], pcms[f"{tier}_python"][k]
+            m = min(a.size, b.size)
+            require(m > 0.9 * max(a.size, b.size)
+                    and a[:m].tobytes() == b[:m].tobytes(),
+                    f"multifm-torch {tier} channel {k}: the runtimes differ")
+        res[f"{tier}_plain"] = {"wall_s": wall}
+        log(f"multifm-torch {tier}: PCM == the plain-version run byte for "
+            f"byte on all 8 channels ({wall:.3f} s), both runtimes agree")
+
+    env = {mock_radios.ENV_VARS["rtlsdr"]: str(mock_radios.build("rtlsdr")),
+           "MOCK_RTLSDR_DATA": str(wire_path)}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        pcm, wall = run("mock_rtlsdr", [], ("chain_fm",), mock=True)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for k in range(nch):
+        got = decode_25k(pcm[k], device)
+        require(got == [expected[k]], f"multifm-torch on the mock RTL-SDR "
+                f"channel {k} decoded {got}")
+    res["mock_rtlsdr"] = {"wall_s": wall, "msps": n / wall / 1e6}
+    log(f"multifm-torch on the mock RTL-SDR: 8 of 8 channels decode; "
+        f"{wall:.3f} s")
+    return res
+
+
+def exact_phases(pipe, iq, expected, device, totals: dict) -> dict:
+    """Phases 13-16: K5 against its plain version and its times, the
+    bit-exact pipeline on phase 4's capture and at decimation 50, the AIS
+    capture, and multifm-torch at etc/multifm_rtlsdr_8ch.json."""
+    import numpy as np
+
+    from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
+    from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec
+    from tsl_sdr_tpu_torch.testing import pager
+    from tsl_sdr_tpu_torch.utils.config import MultifmConfig
+
+    chain = pipe.chain
+    plan = chain.packed_plan
+    pager_vals = iq[:plan.carry_len + pipe.block_size].reshape(-1)
+    cfg8 = MultifmConfig.load(HERE / "etc" / "multifm_rtlsdr_8ch.json")
+    ch8 = MultifmChain.from_config(cfg8, exact=True, device=device)
+    p8 = ch8.packed_plan
+    # multifm-torch's default --block-size, cut to the block quantum
+    block8 = 262_144 - 262_144 % ch8.block_quantum
+    vals8 = np.random.default_rng(15).integers(
+        -32768, 32768, size=p8.carry_vals + 2 * block8).astype(np.int16)
+    k5_err = check_exact_fir({"pager block": (chain, pager_vals),
+                              "multifm_rtlsdr_8ch block": (ch8, vals8)},
+                             device)
+    k5_t = time_exact_fir(chain, pager_vals, device)
+
+    res = {"k5": k5_t, "k5_err": k5_err,
+           "rotator": time_rotator(chain, pipe.block_size * 2 // plan.row,
+                                   device)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        res["exact_pager"] = on_path(
+            "the exact pager pipeline",
+            ("exact_fir", "row_resample_q14", "dc_block_exact"),
+            lambda: exact_pipeline_run(
+                pager.channel_specs(ChannelSpec), pager.lpf_taps(),
+                pager.DECIMATION, iq, [*expected, []], device, tmp, "pager",
+                pager.OFFSETS_HZ[1]), totals)
+        d50_specs = pager.dec50_channel_specs(ChannelSpec)
+        starts = [200_000 + k * 1_300_000 for k in range(len(d50_specs))]
+        d50_iq, d50_exp = pager.capture(2 * 4_194_304 + TAIL_SAMPLES, starts,
+                                        seed=8)
+        res["exact_dec50"] = on_path(
+            "the exact pipeline at decimation 50",
+            ("exact_fir", "frame_resample"),
+            lambda: exact_pipeline_run(
+                d50_specs, pager.dec50_lpf_taps(), pager.DEC50_DECIMATION,
+                d50_iq, [*d50_exp[:len(d50_specs)], []], device, tmp,
+                "dec50", pager.OFFSETS_HZ[1]), totals)
+        del d50_iq
+        res["ais"] = ais_runs(device, tmp, totals)
+        res["multifm"] = multifm_runs(device, tmp, totals)
+    res["kernel"] = {"name": "exact_fir", "route": "cuda",
+                     "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
+                     "replaces": "tsl_sdr_tpu/ops/packed_fir.py:406",
+                     "max_abs_err": k5_err, **k5_t}
+    return res
+
+
 def smoke(device: str) -> dict:
-    """Phases 2-11 on ``device``; returns the kernels' summary."""
+    """Phases 2-16 on ``device``; returns the kernels' summary."""
     import torch
 
     from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
@@ -1487,7 +2094,7 @@ def smoke(device: str) -> dict:
         lambda: k1.chain_fm(taps, carry, prev, block), 5, 50)
     rows = block.numel() // plan.row
     k1_t["bound_ms"], k1_t["bound_by"] = bound(
-        rows * plan.win * 2 * plan.halfcols,
+        fir_macs(plan, rows),
         nbytes(carry, block, taps.w_hi, taps.w_lo, taps.omega_row, prev)
         + 2 * rows * plan.halfcols + nbytes(prev))
     log(f"K1 pipeline block ({rows} rows): kernel {k1_t['ms']:.4f} ms (call "
@@ -1509,6 +2116,7 @@ def smoke(device: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         live = live_runs(pager, iq, expected, device, Path(tmp), totals,
                          pipe.block_size, plan.carry_len)
+    exact = exact_phases(pipe, iq, expected, device, totals)
     del iq
 
     front = front_end(device, totals)
@@ -1517,6 +2125,7 @@ def smoke(device: str) -> dict:
     return {
         "run": run,
         "live": live,
+        "exact": exact,
         "front": front["runs"],
         "k3": k3_times,
         "k4": front["k4"],
@@ -1534,6 +2143,7 @@ def smoke(device: str) -> dict:
              "replaces": "tsl_sdr_tpu/ops/polyphase.py:318",
              "max_abs_err": k3_err, **k3_q14},
             *front["kernels"],
+            exact["kernel"],
         ],
         "launches": totals,
     }
@@ -1609,6 +2219,15 @@ def main() -> int:
     log(f"{card} | resampler-torch 147/160 wall s (20 s of 48 kHz): "
         f"{json.dumps(front['resampler_s'])}")
     log(f"{card} | pipeline at decimation 50: {front['dec50_s']:.3f} s")
+    exact = summary["exact"]
+    for name in ("exact_pager", "exact_dec50"):
+        for tag, r in exact[name].items():
+            log(f"{card} | {name} ({tag}): {json.dumps(r)}")
+    log(f"{card} | exact tier's rotator a pager block: "
+        f"{json.dumps(exact['rotator'])}")
+    log(f"{card} | AIS capture walls s: {json.dumps(exact['ais'])}")
+    for tag, r in exact["multifm"].items():
+        log(f"{card} | multifm-torch {tag}: {json.dumps(r)}")
     for kernel in ("k3", "k4"):
         for name, k in summary[kernel].items():
             log(f"{card} | {kernel.upper()} {name}: {json.dumps(k)}")

@@ -15,10 +15,14 @@ Tolerances: K1 <= 1 PCM LSB and >= 99.9 % exact (its float ops are written
 to match the plain version one to one, so it is exact in practice); K3 and
 K4 EXACTLY equal in both output modes (wrapping int32 sums, then one float32
 conversion and a power-of-two scale, or the integer Q.28 -> Q.14 rounding);
-the exact DC blocker EXACTLY equal (the same integer recurrence).
+the exact DC blocker EXACTLY equal (the same integer recurrence); K5
+EXACTLY equal in both epilogues (wrapping int32 sums, then the integer
+rounding or nothing), and the exact channelizer's PCM on the card equal to
+the CPU's byte for byte.
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -398,3 +402,51 @@ def test_checkpoint_moves_between_card_and_cpu(cuda, pager_capture, tmp_path,
     want = _legs("cuda", "cuda", iq, tmp_path / "ref.npz")
     assert sum(map(len, want)) >= 4
     assert _legs(first, second, iq, tmp_path / "s.npz") == want
+
+
+@pytest.mark.parametrize("bank,extra", [("pager", 0), ("pager", 5),
+                                        ("8ch", 3)])
+@pytest.mark.parametrize("out", ["q14", "raw"])
+def test_exact_fir_kernel_matches_plain(cuda, bank, extra, out):
+    """K5, both epilogues, EXACTLY equal to its plain version: the pager
+    bank (ROW 128, staged taps) and etc/multifm_rtlsdr_8ch.json's (ROW 640,
+    64 columns a half), whole tiles and a ragged last one, full-scale
+    input."""
+    from tsl_sdr_tpu_torch.ops import exact_fir as k5
+    from tsl_sdr_tpu_torch.utils.config import MultifmConfig
+
+    if bank == "pager":
+        ch = MultifmChain(pager.lpf_taps(), pager.OFFSETS_HZ, pager.FS,
+                          pager.DECIMATION, exact=True, device=cuda)
+    else:
+        cfg = MultifmConfig.load(Path(__file__).resolve().parents[1]
+                                 / "etc" / "multifm_rtlsdr_8ch.json")
+        ch = MultifmChain.from_config(cfg, exact=True, device=cuda)
+    plan = ch.packed_plan
+    rows = 3 * ch.taps.tile_rows + extra
+    rng = np.random.default_rng(8)
+    vals = torch.from_numpy(rng.integers(
+        -32768, 32768, size=plan.carry_vals + rows * plan.row).astype(
+            np.int16)).to(cuda)
+    carry, block = vals[:plan.carry_vals], vals[plan.carry_vals:]
+    before = k5.exact_fir.launches
+    got = k5.exact_fir(ch.taps, carry, block, out)
+    ref = k5.exact_fir_plain(ch.taps, carry, block, out)
+    torch.cuda.synchronize()
+    assert k5.exact_fir.launches == before + 1
+    if out == "q14":
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    else:
+        assert got.dtype == torch.int32 and torch.equal(got, ref)
+
+
+def test_exact_chain_on_the_card_equals_cpu(cuda):
+    """MultifmChain(exact=True): K5, the uploaded rotator and the integer
+    discriminator on the card give the CPU run's PCM byte for byte."""
+    x = _iq(600_000, 9)
+    outs = [MultifmChain(pager.lpf_taps(), pager.OFFSETS_HZ, pager.FS,
+                         pager.DECIMATION, exact=True,
+                         device=dev).process_array(x, block_size=131_072)
+            for dev in (cuda, "cpu")]
+    assert outs[0].shape == outs[1].shape and outs[0].size > 0
+    np.testing.assert_array_equal(outs[0], outs[1])

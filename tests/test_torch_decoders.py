@@ -32,6 +32,7 @@ from tsl_sdr_tpu_torch.models import ais as tais
 from tsl_sdr_tpu_torch.models import bch as tbch
 from tsl_sdr_tpu_torch.models import flex as tflex
 from tsl_sdr_tpu_torch.models import pocsag as tpocsag
+from tsl_sdr_tpu_torch.testing import ais_gen as tais_gen
 from tsl_sdr_tpu_torch.testing import flex_gen as tflex_gen
 from tsl_sdr_tpu_torch.testing import pocsag_gen as tpocsag_gen
 from tsl_sdr_tpu_torch.utils import config as tconfig
@@ -149,9 +150,24 @@ def test_bch_matches_jax(native):
         jbch.pocsag_bch(native=False).decode_one(int(words[0]))
 
 
+def _ais_pcm(gen):
+    packets = [gen.make_position_report(367_001_234, longitude=-70.9,
+                                        latitude=42.36),
+               gen.make_static_voyage(367_001_234, ship_name="PORT TEST",
+                                      destination="BOSTON"),
+               gen.make_safety_broadcast(2_470_001, "SECURITE")]
+    return packets, gen.generate(packets, amplitude=9000, gap_bits=40)
+
+
 @pytest.mark.parametrize("case", ["pocsag_alpha", "pocsag_numeric",
-                                  "flex_1600_2", "flex_6400_4"])
+                                  "flex_1600_2", "flex_6400_4", "ais"])
 def test_generators_match_jax(case):
+    if case == "ais":
+        got_pk, got = _ais_pcm(tais_gen)
+        ref_pk, ref = _ais_pcm(ais_gen)
+        assert got_pk == ref_pk
+        np.testing.assert_array_equal(got, ref)
+        return
     if case.startswith("pocsag"):
         kind = case.split("_")[1]
         np.testing.assert_array_equal(_pocsag_pcm(tpocsag_gen, 1200, kind),

@@ -456,3 +456,39 @@ def test_nmea_under_follow(tmp_path):
     lines, nmea = out["torch"]
     assert [json.loads(x)["mmsi"] for x in lines] == [366778899]
     assert nmea.startswith("!AIVDM,1,1,,A,") and nmea.count("\n") == 1
+
+
+@pytest.mark.parametrize("kind", ["reshaped", "no_buf"])
+def test_state_file_with_bad_arrays_is_set_aside(tmp_path, capsys,
+                                                 two_bursts, kind):
+    """A state file whose arrays do not match its metadata (one reshaped,
+    or the input buffer missing) is moved to .bad, and the run decodes
+    exactly as a run without a state file."""
+    from tests.test_torch_stream_engine import _corrupt_checkpoint
+
+    iq, want = two_bursts
+    path = tmp_path / "cap.cs16"
+    iq.tofile(path)
+    cfg = _config(tmp_path, "p", path, ONE)
+    # a real checkpoint of this configuration, then corrupted
+    pipe = tpipe.ReceivePipeline(
+        LPF, CENTER, FS, DECIM, [tpipe.ChannelSpec(CENTER + 250_000,
+                                                   "pocsag")],
+        device="cpu", block_size=393_216)
+    pipe.push(iq[:1_000_000])
+    pipe.checkpoint_stream(tmp_path / "good.npz")
+    state = tmp_path / "s.npz"
+    _corrupt_checkpoint(tmp_path / "good.npz", state, kind)
+    common = [str(cfg), "--follow", "--idle-exit", "0.2", "--block-size",
+              "393216", "--device", "cpu"]
+    assert torch_cli.main([*common, "--state-file", str(state), "-o",
+                           str(tmp_path / "with.jsonl")]) == 0
+    assert "state file unusable" in capsys.readouterr().err
+    assert (tmp_path / "s.npz.bad").exists()
+    assert torch_cli.main([*common, "-o", str(tmp_path / "without.jsonl")]) \
+        == 0
+    # the state-file leg saves its partial block instead of flushing it;
+    # both bursts lie in its whole blocks
+    with_ = _lines(tmp_path / "with.jsonl")
+    assert with_ == _lines(tmp_path / "without.jsonl")
+    assert _pairs(with_) == want

@@ -6,8 +6,10 @@ hardware sources and mock radios, builds a 4-channel CPU pipeline and
 decodes one POCSAG burst, every decoder on its native state machine. A
 second one runs ``decoder-torch`` (a 25/16 frame-form POCSAG input, exact
 tier, ``-b``) and ``resampler-torch``, a third ``pipeline-torch --follow``
-on a FIFO. No file of the port, and not ``chip_smoke.py``, imports either
-package.
+on a FIFO, a fourth ``multifm-torch --exact`` (both I/O runtimes) and
+``pipeline-torch --exact`` on a POCSAG + AIS capture made with the port's
+own generators. No file of the port, and not ``chip_smoke.py``, imports
+either package.
 """
 
 import os
@@ -138,6 +140,58 @@ print("NO-JAX FOLLOW OK")
 """
 
 
+_EXACT_SCRIPT = _BLOCK + r"""
+import json, tempfile
+from pathlib import Path
+import numpy as np
+import tsl_sdr_tpu_torch.ops.atan2
+import tsl_sdr_tpu_torch.ops.exact_fir
+import tsl_sdr_tpu_torch.runtime.feeder
+from tsl_sdr_tpu_torch.cli import multifm, pipeline
+from tsl_sdr_tpu_torch.models.pocsag import PocsagDecoder
+from tsl_sdr_tpu_torch.testing import ais_gen, pager, pocsag_gen
+
+fs, decim, center = pager.FS, pager.DECIMATION, pager.CENTER_HZ
+bb = pocsag_gen.generate(
+    [pocsag_gen.PocsagBurst(capcode=616161, function=1, kind="alpha",
+                            content="EXACT NO JAX")],
+    baud=1200, amplitude=4096, tail_bits=256)
+iq = pager.fm_mod(bb, 38_400, 190_000, fs, amp=8000)
+a_bb = ais_gen.generate([ais_gen.make_position_report(
+    367000444, longitude=-70.0, latitude=41.0)], amplitude=9000)
+a_iq = pager.fm_mod(a_bb, 48_000, -320_000, fs, amp=7000, dev_hz=4800)
+iq[100_000:100_000 + len(a_iq)] += a_iq
+iq = (iq + np.random.default_rng(2).normal(scale=100, size=iq.shape))
+tmp = Path(tempfile.mkdtemp())
+iq.astype(np.int16).tofile(tmp / "cap.cs16")
+cfg = {"device": {"type": "file", "filename": str(tmp / "cap.cs16"),
+                  "fileFormat": "cs16"},
+       "sampleRateHz": fs, "centerFreqHz": center, "decimationFactor": decim,
+       "lpfTaps": [float(t) for t in pager.lpf_taps()],
+       "channels": [{"chanCenterFreq": center + 190_000,
+                     "outFifo": str(tmp / "ch0.pcm"), "protocol": "pocsag"},
+                    {"chanCenterFreq": center - 320_000,
+                     "outFifo": str(tmp / "ch1.pcm"), "protocol": "ais"}]}
+(tmp / "cfg.json").write_text(json.dumps(cfg))
+pcms = []
+for runtime in ("native", "python"):
+    assert multifm.main([str(tmp / "cfg.json"), "--exact", "--runtime",
+                         runtime, "--device", "cpu"]) == 0
+    pcm = np.fromfile(tmp / "ch0.pcm", np.int16)
+    assert [(m.capcode, m.data.rstrip(b"\0")) for m in
+            PocsagDecoder().scan(pcm)] == [(616161, b"EXACT NO JAX")]
+    pcms.append(pcm)
+n = min(map(len, pcms))
+assert n > 0 and (pcms[0][:n] == pcms[1][:n]).all()
+assert pipeline.main([str(tmp / "cfg.json"), "--exact", "--device", "cpu",
+                      "-o", str(tmp / "m.jsonl")]) == 0
+msgs = [json.loads(x) for x in (tmp / "m.jsonl").read_text().splitlines()]
+assert sorted(m["proto"] for m in msgs) == ["ais", "pocsag"], msgs
+""" + _CHECK + r"""
+print("NO-JAX EXACT OK")
+"""
+
+
 def _run_no_jax(script: str, token: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -156,6 +210,10 @@ def test_decoder_and_resampler_clis_run_without_jax():
 
 def test_follow_on_a_fifo_runs_without_jax():
     _run_no_jax(_FOLLOW_SCRIPT, "NO-JAX FOLLOW OK")
+
+
+def test_exact_tier_clis_run_without_jax():
+    _run_no_jax(_EXACT_SCRIPT, "NO-JAX EXACT OK")
 
 
 def test_no_port_file_imports_jax():

@@ -23,10 +23,11 @@ import pytest
 import torch
 
 from tsl_sdr_tpu.models import pipeline as jpipe
-from tsl_sdr_tpu.testing import ais_gen, flex_gen, pocsag_gen
+from tsl_sdr_tpu.testing import flex_gen, pocsag_gen
 from tsl_sdr_tpu.utils.filter_design import firdes_low_pass
 from tsl_sdr_tpu_torch.cli import pipeline as torch_cli
 from tsl_sdr_tpu_torch.models import pipeline as tpipe
+from tsl_sdr_tpu_torch.testing import ais_gen
 from tsl_sdr_tpu_torch.testing.pager import fm_mod
 from tsl_sdr_tpu_torch.utils import convert
 
@@ -231,7 +232,7 @@ def test_cli_matches_pipeline_tpu(tmp_path, fmt):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--time-shards", "2"], ["--exact"], ["--distributed", "h:1"],
+    ["--time-shards", "2"], ["--num-processes", "2"], ["--distributed", "h:1"],
     ["--backend", "xla"], ["--channel-shards", "2"], ["--process-id", "0"],
 ])
 def test_cli_unported_flags_exit_2(tmp_path, capsys, argv):

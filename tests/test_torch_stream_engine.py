@@ -335,3 +335,47 @@ def test_live_latency_bounded_by_inflight_depth(depth):
                    if pipe.push(iq[k * bs:(k + 1) * bs])[0]), None)
     assert got_at is not None, "message never decoded"
     assert got_at <= end_block + depth + 1, (got_at, end_block, depth)
+
+
+def _corrupt_checkpoint(src, dst, kind):
+    """A copy of checkpoint ``src`` with one array reshaped against its
+    metadata (``reshaped``) or without the input buffer (``no_buf``)."""
+    with np.load(src) as data:
+        arrays = {k: data[k] for k in data.files}
+    if kind == "reshaped":
+        name = "state.chain.carry_vals"
+        arrays[name] = arrays[name].reshape(2, -1)
+    else:
+        del arrays["buf"]
+    with open(dst, "wb") as f:
+        np.savez(f, **arrays)
+
+
+@pytest.mark.parametrize("kind", ["reshaped", "no_buf"])
+def test_restore_checks_arrays_before_touching_the_stream(capture, tmp_path,
+                                                          kind):
+    """A checkpoint whose metadata matches but whose arrays do not raises
+    at restore and leaves no half-made stream: none on a fresh pipeline,
+    the old one, untouched, on a streaming one."""
+    iq = capture["iq"]
+    a = _port()
+    a.push(iq[:700_000])
+    good = tmp_path / "good.npz"
+    a.checkpoint_stream(good)
+    bad = tmp_path / "bad.npz"
+    _corrupt_checkpoint(good, bad, kind)
+    fresh = _port()
+    with pytest.raises(ValueError, match="checkpoint"):
+        fresh.restore_stream(bad)
+    assert fresh._stream is None
+    busy = _port(drain_async=True)
+    busy.push(iq[:700_000])
+    old = busy._stream
+    with pytest.raises(ValueError, match="checkpoint"):
+        busy.restore_stream(bad)
+    assert busy._stream is old and old["dthread"].is_alive()
+    # the stream that stayed decodes the rest as if nothing had happened
+    got = [list(c) for c in busy.push(iq[700_000:])]
+    for c, part in enumerate(busy.flush()):
+        got[c].extend(part)
+    assert _fields(got) == _fields(capture["ref"])

@@ -11,9 +11,12 @@ warm failover leg.
 
     pipeline-torch cfg.json --iq-file cap.cs16 -o out.jsonl
     pipeline-torch cfg.json --follow --iq-file iq.fifo --state-file s.npz
+    pipeline-torch cfg.json --iq-file cap.cs16 --exact
 
-The mesh, multi-process and bit-exact flags of ``pipeline-tpu`` are not
-ported; each exits with code 2 and says so.
+``--exact`` runs the bit-exact tier (the reference's PCM bit for bit, no
+egress gating, no ``--state-file``). The mesh, multi-process and backend
+flags of ``pipeline-tpu`` are not ported; each exits with code 2 and says
+so.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ NOT_PORTED = "not yet ported to tsl_sdr_tpu_torch"
 
 # pipeline-tpu flags this port does not have yet: (flag, takes a value)
 _UNPORTED = (
-    ("--exact", False), ("--backend", True), ("--channel-shards", True),
+    ("--backend", True), ("--channel-shards", True),
     ("--time-shards", True), ("--distributed", True),
     ("--num-processes", True), ("--process-id", True),
 )
@@ -92,6 +95,9 @@ def build_argparser():
     p.add_argument("--iq-format", default=None,
                    choices=["cs16", "cs8", "cu8", "cu8_unbiased", "rtl_u8"])
     p.add_argument("-o", "--output", default=None, help="messages JSON file")
+    p.add_argument("--exact", action="store_true",
+                   help="bit-exact integer tier (the reference's PCM bit "
+                        "for bit)")
     p.add_argument("--follow", action="store_true",
                    help="consume the IQ source live (FIFO, growing file or "
                         "hardware device): decode as data arrives, emit JSON "
@@ -155,6 +161,11 @@ def main(argv=None):
             return 2
     if args.state_file is not None and not args.follow:
         print(f"{PROG}: --state-file requires --follow", file=sys.stderr)
+        return 2
+    if args.state_file is not None and args.exact:
+        print(f"{PROG}: --state-file covers the production streaming tier; "
+              "the bit-exact tier is a parity oracle (drop --exact)",
+              file=sys.stderr)
         return 2
     if args.follow and args.standby and args.state_file is None:
         print(f"{PROG}: --standby requires --state-file", file=sys.stderr)
@@ -227,6 +238,7 @@ def main(argv=None):
     pipe = ReceivePipeline(
         cfg.lpf_taps, cfg.center_freq_hz, cfg.sample_rate_hz,
         cfg.decimation_factor, specs,
+        exact=args.exact,
         block_size=args.block_size,
         inflight_depth=args.inflight_depth,
         ais_packet_hook=ais_hook,
@@ -431,7 +443,7 @@ def _follow_loop(args, cfg, pipe, emit, dump_iq, iq_path, fmt, wire_fmt,
                 counters.messages += emit(pipe.push(iq))
             if guard.pending:
                 raise KeyboardInterrupt
-            if not primed and pipe._stream is not None:
+            if not primed and pipe.primed:
                 primed = True
                 print(f"{PROG}: stream primed", file=sys.stderr, flush=True)
             if args.stats:
@@ -447,7 +459,7 @@ def _follow_loop(args, cfg, pipe, emit, dump_iq, iq_path, fmt, wire_fmt,
     finally:
         if hw_source is not None:
             hw_source.stop()
-    if args.state_file is not None and pipe._stream is not None:
+    if args.state_file is not None and pipe.primed:
         # a second SIGTERM during the save must not kill it: the drain and
         # the write are one critical section (the rename itself is atomic)
         t_save = time.perf_counter()

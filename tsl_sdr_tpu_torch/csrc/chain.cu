@@ -1,4 +1,5 @@
-// K1: fused packed channelizer + FM discriminator, one block of rows.
+// K1: fused packed channelizer + FM discriminator, one block of rows; and
+// K5, the exact packed FIR: the same main loop with integer epilogues.
 //
 // Replaces the TPU kernels in tsl_sdr_tpu/ops/pallas_chain.py:
 // _chain_kernel_v2 + _chain_body + _chain_call_v2 (the zero-copy form) and
@@ -42,6 +43,17 @@
 // 3,200 values and only 16 rows fit); each tile recomputes its own
 // look-back row for the FM history of its first row, so tiles run in any
 // order.
+//
+// K5 (template mode kQ14 / kRaw) replaces the bit-exact tier's device
+// stage, tsl_sdr_tpu/ops/packed_fir.py packed_fir_step_exact (an XLA int16 x
+// int16 -> int32 jnp.dot; torch's CUDA matmul takes no int16 operands). It
+// runs K1's staging and IMMA main loop unchanged, so its int32 sums are
+// K1's bit for bit, and writes them from the fragments straight to device
+// memory: kQ14 as the reference's Q.28 -> Q.14 rounding (a >> 14) + ((a >>
+// 13) & 1), narrowed mod 2^16, into two int16 planes [re | im] of [rows,
+// HC]; kRaw as the int32 sums [rows, 2*HC] (the fast tier's debug tap). Its
+// bound is K1's (operations); the look-back row each tile recomputes is
+// wasted work here, kept so that both kernels share one tiling.
 //
 // Numerics: every float operation of the FM stage is written with an
 // explicit round-to-nearest intrinsic (no FMA contraction) in the order of
@@ -112,21 +124,28 @@ __host__ __device__ size_t tap_bytes(int u_len, int hc) {
   return 2 * (size_t)((u_len + 31) / 32) * ((2 * hc + 7) / 8) * 256;
 }
 
+// epilogues: K1's FM discriminator, K5's rounded planes, K5's raw sums
+constexpr int kFm = 0;
+constexpr int kQ14 = 1;
+constexpr int kRaw = 2;
+
 // grid.x = ceil(rows / tr); tile t owns output rows [t*tr, t*tr + tr) and
 // recomputes the accumulators of row t*tr - 1 (the look-back row) for the
 // FM history of its first row. stage_taps: copy the tap planes to shared
-// memory (else they are read from device memory through L2).
+// memory (else they are read from device memory through L2). out: kFm
+// int16 [rows, hc]; kQ14 int16 [2, rows, hc]; kRaw int32 [rows, 2*hc].
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
-chain_fm_kernel(const int16_t* __restrict__ carry,
-                const int16_t* __restrict__ block,
-                const uint2* __restrict__ w_hi,
-                const uint2* __restrict__ w_lo,
-                const float* __restrict__ omega,
-                const float* __restrict__ prev,
-                int16_t* __restrict__ out,
-                float* __restrict__ prev_out,
-                int rows, int row, int cr, int u_len, int hc, int nr_ch,
-                int tr, int stage_taps) {
+chain_kernel(const int16_t* __restrict__ carry,
+             const int16_t* __restrict__ block,
+             const uint2* __restrict__ w_hi,
+             const uint2* __restrict__ w_lo,
+             const float* __restrict__ omega,
+             const float* __restrict__ prev,
+             void* __restrict__ out,
+             float* __restrict__ prev_out,
+             int rows, int row, int cr, int u_len, int hc, int nr_ch,
+             int tr, int stage_taps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int pitch = row + kPitchPad;
   const int x_rows = tr + 1 + cr;
@@ -140,6 +159,7 @@ chain_fm_kernel(const int16_t* __restrict__ carry,
   const uint2* b_lo = w_lo;
 
   const int r0 = blockIdx.x * tr;
+  const int n_out = min(tr, rows - r0);
   // stage stream rows [r0 - 1, r0 + tr + cr): row -1 and rows past the
   // stream's end read as zeros (they feed only discarded outputs)
   const long long carry_vals = (long long)cr * row;
@@ -247,19 +267,34 @@ chain_fm_kernel(const int16_t* __restrict__ carry,
         for (int i = 0; i < 4; ++i) {
           const int lr = lr0 + 16 * h + (lane >> 2) + (i >> 1) * 8;
           const int c = (nt0 + j) * 8 + (lane & 3) * 2 + (i & 1);
-          const float f = __int2float_rn((int)imma::combine(acc[h][j], i));
-          if (c < hc) {
-            acc_re[lr * hc + c] = f;
-          } else if (c < 2 * hc) {
-            acc_im[lr * hc + c - hc] = f;
+          const int sum = (int)imma::combine(acc[h][j], i);
+          if constexpr (kMode == kFm) {
+            const float f = __int2float_rn(sum);
+            if (c < hc) {
+              acc_re[lr * hc + c] = f;
+            } else if (c < 2 * hc) {
+              acc_im[lr * hc + c - hc] = f;
+            }
+          } else {
+            // K5: output row r0 + lr - 1; the look-back row is dropped
+            if (lr >= 1 && lr <= n_out && c < 2 * hc) {
+              const size_t r = (size_t)(r0 + lr - 1);
+              if constexpr (kMode == kRaw) {
+                static_cast<int*>(out)[r * 2 * hc + c] = sum;
+              } else {
+                const size_t plane = c < hc ? 0 : (size_t)rows * hc;
+                static_cast<int16_t*>(out)[plane + r * hc + c % hc] =
+                    (int16_t)((sum >> 14) + ((sum >> 13) & 1));
+              }
+            }
           }
         }
       }
     }
   }
+  if constexpr (kMode != kFm) return;
   __syncthreads();
 
-  const int n_out = min(tr, rows - r0);
   for (int item = threadIdx.x; item < n_out * hc; item += blockDim.x) {
     const int lr = 1 + item / hc;
     const int col = item % hc;
@@ -274,7 +309,7 @@ chain_fm_kernel(const int16_t* __restrict__ carry,
       pr = prev[col];
       pi = prev[nr_ch + col];
     }
-    out[(size_t)(r0 + lr - 1) * hc + col] =
+    static_cast<int16_t*>(out)[(size_t)(r0 + lr - 1) * hc + col] =
         fm_pcm(acc_re[lr * hc + col], acc_im[lr * hc + col], pr, pi,
                omega[col]);
   }
@@ -285,6 +320,42 @@ chain_fm_kernel(const int16_t* __restrict__ carry,
       prev_out[nr_ch + c] = acc_im[n_out * hc + hc - nr_ch + c];
     }
   }
+}
+
+// raise the kernel's shared-memory ceiling once per device (the attribute
+// applies to the current device only), not on every launch; then launch
+template <int kMode>
+int launch(const void* carry, const void* block, const void* w_hi,
+           const void* w_lo, const void* omega, const void* prev, void* out,
+           void* prev_out, int rows, int row, int cr, int u_len, int hc,
+           int nr_ch, int tr, cudaStream_t stream) {
+  if (rows <= 0 || tr <= 0 || (tr + 1) % 16 || row <= 0 || row % 32 ||
+      u_len <= 0 || u_len > (cr + 1) * row || u_len > 32768 || nr_ch > hc ||
+      (uintptr_t)carry % 16 || (uintptr_t)block % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  size_t smem = x_bytes(tr, row, cr) + acc_bytes(tr, hc);
+  if (smem > kSmemCap) return (int)cudaErrorInvalidValue;
+  const int stage_taps = smem + tap_bytes(u_len, hc) <= kSmemCap ? 1 : 0;
+  if (stage_taps) smem += tap_bytes(u_len, hc);
+  constexpr int kMaxDevices = 64;
+  static int smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || (int)smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(chain_kernel<kMode>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) smem_set[dev] = (int)smem;
+  }
+  const int grid = (rows + tr - 1) / tr;
+  chain_kernel<kMode><<<grid, kThreads, smem, stream>>>(
+      (const int16_t*)carry, (const int16_t*)block, (const uint2*)w_hi,
+      (const uint2*)w_lo, (const float*)omega, (const float*)prev, out,
+      (float*)prev_out, rows, row, cr, u_len, hc, nr_ch, tr, stage_taps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -301,36 +372,29 @@ extern "C" int tsl_chain_fm(const void* carry, const void* block,
                             void* prev_out, int rows, int row, int cr,
                             int u_len, int hc, int nr_ch, int tr,
                             void* stream) {
-  if (rows <= 0 || tr <= 0 || (tr + 1) % 16 || row <= 0 || row % 32 ||
-      u_len <= 0 || u_len > (cr + 1) * row || u_len > 32768 || nr_ch > hc ||
-      (uintptr_t)carry % 16 || (uintptr_t)block % 16) {
-    return (int)cudaErrorInvalidValue;
+  return launch<kFm>(carry, block, w_hi, w_lo, omega, prev, out, prev_out,
+                     rows, row, cr, u_len, hc, nr_ch, tr,
+                     (cudaStream_t)stream);
+}
+
+// K5: the same operands without the FM stage -> out_mode 1: int16 [2, rows,
+// hc] (a_re plane, then a_im), the Q.28 -> Q.14 rounded sums; out_mode 2:
+// int32 [rows, 2*hc], the sums themselves. Same requirements as
+// tsl_chain_fm.
+extern "C" int tsl_exact_fir(const void* carry, const void* block,
+                             const void* w_hi, const void* w_lo, void* out,
+                             int rows, int row, int cr, int u_len, int hc,
+                             int tr, int out_mode, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (out_mode == kQ14) {
+    return launch<kQ14>(carry, block, w_hi, w_lo, nullptr, nullptr, out,
+                        nullptr, rows, row, cr, u_len, hc, 0, tr, st);
   }
-  size_t smem = x_bytes(tr, row, cr) + acc_bytes(tr, hc);
-  if (smem > kSmemCap) return (int)cudaErrorInvalidValue;
-  const int stage_taps = smem + tap_bytes(u_len, hc) <= kSmemCap ? 1 : 0;
-  if (stage_taps) smem += tap_bytes(u_len, hc);
-  // raise the kernel's shared-memory ceiling once per device (the
-  // attribute applies to the current device only), not on every launch
-  constexpr int kMaxDevices = 64;
-  static int smem_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices || (int)smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(chain_fm_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < kMaxDevices) smem_set[dev] = (int)smem;
+  if (out_mode == kRaw) {
+    return launch<kRaw>(carry, block, w_hi, w_lo, nullptr, nullptr, out,
+                        nullptr, rows, row, cr, u_len, hc, 0, tr, st);
   }
-  const int grid = (rows + tr - 1) / tr;
-  chain_fm_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int16_t*)carry, (const int16_t*)block, (const uint2*)w_hi,
-      (const uint2*)w_lo, (const float*)omega, (const float*)prev,
-      (int16_t*)out, (float*)prev_out, rows, row, cr, u_len, hc, nr_ch, tr,
-      stage_taps);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* tsl_error_string(int err) {

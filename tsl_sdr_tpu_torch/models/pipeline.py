@@ -1,9 +1,10 @@
 """End-to-end receive pipeline: channelize -> resample -> protocol decode.
 
-Port of the production streaming engine of
-``tsl_sdr_tpu/models/pipeline.py`` (``:85-1055, 1294-1547``), with its
-drain worker and its checkpoint/restore.
-Every device stage of a block runs in one call, :meth:`_SizedProgram.dev_step`:
+Port of ``tsl_sdr_tpu/models/pipeline.py``: the production streaming
+engine with its drain worker and its checkpoint/restore, and the bit-exact
+engine (``exact=True``, see "Bit-exact engine" below). On the production
+tier every device stage of a block runs in one call,
+:meth:`_SizedProgram.dev_step`:
 
 1. widen 8-bit wire bytes;
 2. channelize + FM-demodulate (kernel K1, ``ops.chain``);
@@ -25,6 +26,15 @@ drain logic is the same code.
 
 Egress gating: a channel whose block raised no sync candidate sends only its
 flag and carried tail; its decoder does no work.
+
+Bit-exact engine: per block, the channelizer's exact step (kernel K5, the
+host rotator, the integer discriminator on the device) with
+``inflight_depth`` blocks in flight; then, in dispatch order (inline or on
+the drain worker), polarity inversion, each ratio group's exact resampler
+(K3 or K4 with Q.14 output, one launch for the group's rows), the exact
+DC blocker (its kernel) and the decoders, every carry threaded. No
+prefilter or gating: its contract is the reference's PCM, bit for bit, at
+any push split. It cannot checkpoint (as in the JAX package).
 """
 
 from __future__ import annotations
@@ -44,9 +54,11 @@ import numpy as np
 import torch
 
 from tsl_sdr_tpu_torch.models.ais import AisDecoder
-from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
+from tsl_sdr_tpu_torch.models.channelizer import (HostCopy, MultifmChain,
+                                                   widen_wire)
 from tsl_sdr_tpu_torch.models.flex import FlexDecoder
 from tsl_sdr_tpu_torch.models.pocsag import PocsagDecoder
+from tsl_sdr_tpu_torch.models.resampler import ResamplerChain
 from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
 from tsl_sdr_tpu_torch.ops import polyphase, q14, sync_prefilter
 from tsl_sdr_tpu_torch.ops.q14 import to_int16
@@ -89,47 +101,6 @@ class ChannelSpec:
     dc_block: bool = False       # decoder -b flag (decoder/decoder.c:648-656)
     dc_block_pole: float = 0.9999
     db_gain: float | None = None  # per-channel dBGain (receiver.c:218-221)
-
-
-def widen_wire(vals: torch.Tensor, wire_fmt: str) -> torch.Tensor:
-    """Raw wire values -> int16 IQ values, on the device. An 8-bit block
-    ships 2 B/sample instead of int16's 4 and widens here, bit-identical to
-    the host rules in ``utils.iq.widen_iq_bytes`` (reference
-    ``multifm/rtl_sdr_if.c:118-147``, ``file_if.c:85-157``)."""
-    if wire_fmt == "cs16":
-        return vals
-    if wire_fmt == "cs8":
-        return vals.to(torch.int16)
-    if wire_fmt in ("cu8", "cu8_unbiased"):
-        return vals.to(torch.int16) - 127
-    if wire_fmt == "rtl_u8":
-        return (vals.to(torch.int16) - 127) << 7
-    raise ValueError(f"unknown wire_fmt {wire_fmt!r}")
-
-
-class _HostCopy:
-    """A device->host copy started now and waited for at :meth:`numpy`:
-    into pinned memory with ``non_blocking=True`` and a CUDA event on the
-    card, the tensor itself on the CPU. On the card the copy runs on
-    ``stream`` (default: the current one), which must be the stream ``t``
-    was made on: the caching allocator may hand ``t``'s memory out again
-    once it is freed, ordered only against that stream."""
-
-    def __init__(self, t: torch.Tensor, stream=None):
-        if t.device.type == "cuda":
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            with torch.cuda.stream(stream):
-                self._host.copy_(t, non_blocking=True)
-                self._event = torch.cuda.Event()
-                self._event.record()
-        else:
-            self._host = t.contiguous()
-            self._event = None
-
-    def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
 
 
 def _leaf_key(k) -> str:
@@ -297,7 +268,7 @@ class ReceivePipeline:
     sample_rate : wideband sample rate (Hz)
     decimation : channelizer decimation; channel rate = fs / decimation
     channels : list of :class:`ChannelSpec`
-    exact : the bit-exact tier is not ported; must be False
+    exact : bit-exact integer tier (True) or production tier (False)
     block_size : streaming block length in wideband samples (rounded to the
         pipeline quantum); default ~4M
     inflight_depth : blocks kept in flight before the oldest is drained
@@ -326,9 +297,6 @@ class ReceivePipeline:
                  inflight_depth: int = 2, ais_packet_hook=None,
                  wire_fmt: str = "cs16", device="cuda",
                  drain_async: bool = False):
-        if exact:
-            raise NotImplementedError(
-                "the bit-exact tier is not yet ported to tsl_sdr_tpu_torch")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but CUDA is not available")
@@ -359,12 +327,14 @@ class ReceivePipeline:
             for c in self.channels
         ]
         self.chain = MultifmChain(lpf_taps, offsets, sample_rate, decimation,
-                                  gains=gains, device=self.device)
+                                  gains=gains, exact=exact,
+                                  device=self.device)
         ch_rate = self.chain.channel_rate
 
         self._decoders = []
         self._ratio_gid = []
         self._rs_coeffs = {}
+        self._rs_chains = {}
         for spec in self.channels:
             if spec.protocol == "pcm":
                 self._decoders.append(None)
@@ -384,11 +354,23 @@ class ReceivePipeline:
                 if gid not in self._rs_coeffs:
                     self._rs_coeffs[gid] = design_rational_resampler_filter(
                         ratio.numerator, ratio.denominator, 0.4)
+                    if exact:
+                        # the exact engine's and the host path's resampler
+                        # (the production engine sizes its own plans)
+                        self._rs_chains[gid] = ResamplerChain(
+                            self._rs_coeffs[gid], ratio.numerator,
+                            ratio.denominator, exact=True,
+                            device=self.device)
                 self._ratio_gid.append(gid)
             self._decoders.append(_make_decoder(
                 spec.protocol, spec.center_freq_hz, self._ais_packet_hook))
 
         self._setup_stream(block_size)
+
+    @property
+    def primed(self) -> bool:
+        """Whether a stream (of either engine) has started."""
+        return self._stream is not None or self._xstream is not None
 
     @property
     def decoder_tiers(self) -> set:
@@ -461,6 +443,7 @@ class ReceivePipeline:
 
         self._programs: dict[int, _SizedProgram] = {}
         self._stream = None
+        self._xstream = None
         self._last_stream_stats = None
         self._pending_prefix = np.zeros((0, 2), self._wire_dtype)
         self._uploads = []   # pinned staging ring: [buffer, event] pairs
@@ -479,6 +462,7 @@ class ReceivePipeline:
         forgotten, so no old block reaches a later stream."""
         self._drain_shutdown()
         self._stream = None
+        self._xstream = None
         self._pending_prefix = np.zeros((0, 2), self._wire_dtype)
 
     # -- wire-format helpers -------------------------------------------------
@@ -505,6 +489,12 @@ class ReceivePipeline:
         return widen_iq_bytes(flat, self.wire_fmt).reshape(-1, 2)
 
     def _stream_init(self, prefix: np.ndarray | None):
+        self._stream = self._new_stream(prefix)
+        if self.drain_async:
+            self._start_drain_worker(self._stream, self._drain)
+
+    def _new_stream(self, prefix: np.ndarray | None) -> dict:
+        """A fresh production stream dict (not installed, no worker)."""
         if prefix is not None and self.wire_fmt != "cs16":
             # the chain's carry prefix is tiny (carry_len samples); widen
             # it on the host — the bulk blocks widen on the device
@@ -522,8 +512,9 @@ class ReceivePipeline:
                 for pgid, pg in self._pack_groups.items()
             },
         }
-        self._stream = {
+        return {
             "st": st,
+            "drain_one": self._drain,
             "buf": [],
             "buf_len": 0,
             "inflight": deque(),
@@ -552,15 +543,16 @@ class ReceivePipeline:
             # flags + tail head (egress gating)
             "hot": {pgid: True for pgid in self._pack_groups},
         }
-        if self.drain_async:
-            self._start_drain_worker(self._stream)
 
     # -- drain worker ---------------------------------------------------------
 
-    def _start_drain_worker(self, s: dict):
+    def _start_drain_worker(self, s: dict, drain_one):
         """Attach a drain worker to stream dict ``s``: entries queued by
-        :meth:`_drain_entry` are drained into ``s`` (never into a later
-        stream) on one thread, in order."""
+        :meth:`_drain_entry` are drained by ``drain_one(s, entry, new)``
+        into ``s`` (never into a later stream) on one thread, in order.
+        ``drain_one`` is :meth:`_drain` (production) or
+        :meth:`_drain_exact_fir` (bit-exact)."""
+        s["drain_one"] = drain_one
         # bounded: a lagging worker holds push() back instead of letting
         # undrained device buffers pile up
         s["dq"] = queue.Queue(maxsize=max(2, self.inflight_depth))
@@ -586,7 +578,7 @@ class ReceivePipeline:
                     continue  # poisoned: discard, the error surfaces on push
                 try:
                     part = [[] for _ in self.channels]
-                    self._drain(s, entry, part)
+                    drain_one(s, entry, part)
                     with s["dlock"]:
                         for c, msgs in enumerate(part):
                             s["dres"][c].extend(msgs)
@@ -612,7 +604,7 @@ class ReceivePipeline:
         """Drain one in-flight block of stream ``s``: inline, or queued to
         its worker (results ready so far fold into ``new``)."""
         if s.get("dthread") is None:
-            self._drain(s, entry, new)
+            s["drain_one"](s, entry, new)
             return
         self._collect(s, new)
         s["dq"].put(entry)
@@ -628,13 +620,13 @@ class ReceivePipeline:
         self._collect(s, new)
 
     def _drain_shutdown(self):
-        """Stop the current stream's worker and join it."""
-        s = self._stream
-        if s is None or s.get("dthread") is None:
-            return
-        s["dq"].put(None)
-        s["dthread"].join()
-        s["dthread"] = None
+        """Stop the current streams' workers and join them."""
+        for s in (self._stream, self._xstream):
+            if s is None or s.get("dthread") is None:
+                continue
+            s["dq"].put(None)
+            s["dthread"].join()
+            s["dthread"] = None
 
     @property
     def stream_stats(self) -> dict:
@@ -659,35 +651,41 @@ class ReceivePipeline:
         calls (reference run-forever semantics, multifm/multifm.c:163-165).
         """
         new = [[] for _ in self.channels]
-        for block in self._pump_blocks(iq):
-            self._dispatch(block)
-            s = self._stream
+        if self.chain.exact:
+            attr, init, dispatch = ("_xstream", self._xstream_init,
+                                    self._dispatch_exact)
+        else:
+            attr, init, dispatch = "_stream", self._stream_init, self._dispatch
+        for block in self._pump_blocks(iq, attr, init):
+            dispatch(block)
+            s = getattr(self, attr)
             while len(s["inflight"]) > self.inflight_depth:
                 self._drain_entry(s, s["inflight"].popleft(), new)
         # hand back what the worker finished meanwhile, even on a push too
         # short to complete a block (live latency)
-        s = self._stream
+        s = getattr(self, attr)
         if s is not None and s.get("dthread") is not None:
             self._collect(s, new)
         return new
 
-    def _pump_blocks(self, iq):
-        """Hold data until the chain prefix is covered, prime the stream,
+    def _pump_blocks(self, iq, attr: str, init_fn):
+        """The input path of both engines: hold data until the chain prefix
+        is covered, prime the stream ``self.<attr>`` with ``init_fn``,
         buffer, and yield full block_size blocks."""
         if self.wire_fmt == "cs16":
             iq = np.asarray(iq, np.int16).reshape(-1, 2)
         else:
             iq = self._coerce_wire(iq)
-        if self._stream is None:
+        if getattr(self, attr) is None:
             c_len = self.chain.carry_len
             pend = np.concatenate([self._pending_prefix, iq])
             if pend.shape[0] < c_len + 1:
                 self._pending_prefix = pend
                 return
-            self._stream_init(pend[:c_len] if c_len else None)
+            init_fn(pend[:c_len] if c_len else None)
             self._pending_prefix = np.zeros((0, 2), self._wire_dtype)
             iq = pend[c_len:]
-        s = self._stream
+        s = getattr(self, attr)
         s["buf"].append(iq)
         s["buf_len"] += iq.shape[0]
         while s["buf_len"] >= self.block_size:
@@ -761,11 +759,11 @@ class ReceivePipeline:
         pre = {}
         for pgid, combined in pack_out.items():
             if s["hot"][pgid]:
-                pre[pgid] = ("full", _HostCopy(combined))
+                pre[pgid] = ("full", HostCopy(combined))
             else:
-                pre[pgid] = ("head", _HostCopy(
+                pre[pgid] = ("head", HostCopy(
                     combined[:, :prog.meta_bytes[pgid]]))
-        raws = {rgid: _HostCopy(rows) for rgid, rows in raw_out.items()}
+        raws = {rgid: HostCopy(rows) for rgid, rows in raw_out.items()}
         if tm is not None:
             self._tick("egress_start_s", t0)
         stream = (torch.cuda.current_stream(self.device)
@@ -825,7 +823,7 @@ class ReceivePipeline:
                     # once (a rare edge) and index on the host
                     if tm is not None:
                         t0 = time.perf_counter()
-                    full = _HostCopy(pack_out[pgid], stream).numpy()
+                    full = HostCopy(pack_out[pgid], stream).numpy()
                     packed = full[np.asarray(need_rows), mb:]
                     if tm is not None:
                         t0 = self._tick("drain_wait_s", t0)
@@ -908,6 +906,8 @@ class ReceivePipeline:
         The tail is padded with the wire format's zero level up to the full
         block size (reusing the block's program) and the pad-derived output
         samples are trimmed before any decoder or pcm channel sees them."""
+        if self.chain.exact:
+            return self._flush_exact()
         s = self._stream
         if s is None:
             return self._flush_unprimed()
@@ -938,7 +938,7 @@ class ReceivePipeline:
         wire format's zero level. Stream state and decoders end untouched
         (silence keeps every decoder in SEARCH; the stream is reset).
         No-op on an already-primed stream. Returns wall seconds spent."""
-        if self._stream is not None or self._pending_prefix.shape[0]:
+        if self.primed or self._pending_prefix.shape[0]:
             return 0.0
         t0 = time.monotonic()
         n = self.chain.carry_len + self.block_size + 1024
@@ -954,6 +954,176 @@ class ReceivePipeline:
             self._drain_entry(s, s["inflight"].popleft(), new)
         self._drain_barrier(s, new)
 
+    # -- bit-exact streaming engine ------------------------------------------
+
+    def _xstream_init(self, prefix):
+        if prefix is not None and self.wire_fmt != "cs16":
+            prefix = self._widen_host(prefix)
+        self._xstream = {
+            "st": self.chain.init_state(prefix=prefix),
+            "drain_one": self._drain_exact_fir,
+            "buf": [],
+            "buf_len": 0,
+            # dispatched blocks (K5 + derotation + discriminator queued,
+            # their PCM on its way to the host), drained in order
+            "inflight": deque(),
+            # per ratio group: the resampler carry [G, carry_len] on the
+            # device (None until the group's head has primed it) and the
+            # channel-rate samples waiting for a whole resampler step
+            "g_rs_st": {gid: None for gid in self._rs_groups},
+            "g_abuf": {gid: np.zeros((len(idxs), 0), np.int16)
+                       for gid, idxs in self._rs_groups.items()},
+            "dc_st": {i: torch.zeros((1, 3), dtype=torch.int32,
+                                     device=self.device)
+                      for i, _ in self._dc_items},
+        }
+        if self.drain_async:
+            self._start_drain_worker(self._xstream, self._drain_exact_fir)
+
+    def _dispatch_exact(self, block: np.ndarray):
+        tm = self.timing
+        if tm is not None:
+            t0 = time.perf_counter()
+        # 8-bit wire blocks upload raw and widen on the device, by the host
+        # rules bit for bit (only the tiny stream prefix widens on the host)
+        x = self._xstream
+        x["st"], pending = self.chain.step_exact_packed_begin(
+            x["st"], block, wire_fmt=self.wire_fmt)
+        if tm is not None:
+            self._tick("dispatch_s", t0)
+        x["inflight"].append(pending)
+
+    def _drain_exact_fir(self, x: dict, pending, new: list):
+        """Finish one dispatched exact block of stream ``x`` and run the
+        stages after the channelizer on its PCM."""
+        tm = self.timing
+        if tm is not None:
+            t0 = time.perf_counter()
+        pcm = self.chain.step_exact_packed_end(pending)
+        if tm is not None:
+            self._tick("fir_end_s", t0)
+        self._drain_exact(x, pcm, new)
+
+    def _stack_rs_states(self, gid, prefixes: np.ndarray) -> torch.Tensor:
+        """Head-prime every channel of a ratio group from its [G, c_len]
+        prefix rows: the group's resampler carry on the device."""
+        return polyphase.init_resampler_carry(
+            self._rs_chains[gid].plan, prefixes.shape[0], device=self.device,
+            prefix=torch.from_numpy(np.ascontiguousarray(prefixes)))
+
+    def _exact_polarity(self, pcm: np.ndarray) -> list:
+        """Per channel, its PCM row of ``pcm`` [C, K], inverted (saturating)
+        where the channel says so."""
+        return [np.clip(-(a.astype(np.int32)), -32768, 32767).astype(np.int16)
+                if spec.invert else a for a, spec in zip(pcm, self.channels)]
+
+    def _exact_dc(self, st: torch.Tensor, i: int, audio: np.ndarray):
+        """Channel ``i``'s exact DC blocker (its kernel) over ``audio``,
+        carrying ``st`` [1, 3] int32."""
+        return dcb.dc_block_exact(
+            st, torch.from_numpy(np.ascontiguousarray(audio)[None]).to(
+                self.device),
+            dcb.make_pole_coeff(self.channels[i].dc_block_pole))[0] \
+            .cpu().numpy()
+
+    def _drain_exact(self, x: dict, pcm: np.ndarray, new: list):
+        audio = self._exact_polarity(pcm)
+        for gid, idxs in self._rs_groups.items():
+            rows = np.stack([audio[i] for i in idxs])  # [G, K]
+            buf = (np.concatenate([x["g_abuf"][gid], rows], axis=1)
+                   if x["g_abuf"][gid].shape[1] else rows)
+            rs = self._rs_chains[gid]
+            if x["g_rs_st"][gid] is None:
+                c_len = rs.plan.carry_len
+                if buf.shape[1] < c_len + 1:
+                    x["g_abuf"][gid] = buf
+                    continue
+                x["g_rs_st"][gid] = self._stack_rs_states(gid, buf[:, :c_len])
+                buf = buf[:, c_len:]
+            n_in = rs.plan.block_in
+            chunks = buf.shape[1] // n_in
+            if chunks:
+                tm = self.timing
+                if tm is not None:
+                    t0 = time.perf_counter()
+                # every whole step of the group's rows in one launch
+                x["g_rs_st"][gid], out = rs.steps(
+                    x["g_rs_st"][gid],
+                    torch.from_numpy(np.ascontiguousarray(
+                        buf[:, :chunks * n_in])).to(self.device))
+                outs = out.cpu().numpy()
+                buf = buf[:, chunks * n_in:]
+                if tm is not None:
+                    self._tick("rs_s", t0)
+            else:
+                outs = np.zeros((len(idxs), 0), np.int16)
+            x["g_abuf"][gid] = buf
+            for j, i in enumerate(idxs):
+                self._exact_channel_out(x, i, outs[j], new)
+        for i in range(len(self.channels)):
+            if self._ratio_gid[i] is None:
+                self._exact_channel_out(x, i, audio[i], new)
+
+    def _exact_channel_out(self, x: dict, i: int, audio: np.ndarray,
+                           new: list):
+        """Post-resampler per-channel stages: DC block -> decode/collect."""
+        if audio.size == 0:
+            return
+        if self.channels[i].dc_block:
+            audio = self._exact_dc(x["dc_st"][i], i, audio)
+        tm = self.timing
+        if tm is not None:
+            t0 = time.perf_counter()
+        dec = self._decoders[i]
+        if dec is None:
+            new[i].append(np.asarray(audio, np.int16))
+        else:
+            new[i].extend(dec.scan(np.asarray(audio)))
+        if tm is not None:
+            self._tick("decode_s", t0)
+
+    def _flush_exact(self) -> list:
+        x = self._xstream
+        if x is None:
+            return self._flush_unprimed()
+        new = [[] for _ in self.channels]
+        # drain the in-flight blocks first and quiesce the worker: the tail
+        # legs below touch the resampler and DC state it owns meanwhile
+        self._drain_all(x, new)
+        if x["buf_len"]:
+            buf = (np.concatenate(x["buf"]) if len(x["buf"]) > 1
+                   else x["buf"][0])
+            q = self.chain.block_quantum
+            usable = buf.shape[0] // q * q
+            if usable:
+                x["st"], pending = self.chain.step_exact_packed_begin(
+                    x["st"], self._widen_host(buf[:usable]))
+                self._drain_exact_fir(x, pending, new)
+            x["buf"] = []
+            x["buf_len"] = 0
+        # sub-block_in resampler tails: one shorter step per group, chained
+        # through the live carry
+        for gid, idxs in self._rs_groups.items():
+            rs = self._rs_chains[gid]
+            buf = x["g_abuf"][gid]
+            st_g = x["g_rs_st"][gid]
+            if st_g is None:
+                c_len = rs.plan.carry_len
+                if buf.shape[1] < c_len + 1:
+                    continue
+                st_g = self._stack_rs_states(gid, buf[:, :c_len])
+                buf = buf[:, c_len:]
+            tail_use = buf.shape[1] // rs.plan.d_rep * rs.plan.d_rep
+            if not tail_use:
+                continue
+            outs = rs.tail(st_g, torch.from_numpy(np.ascontiguousarray(
+                buf[:, :tail_use])).to(self.device)).cpu().numpy()
+            for j, i in enumerate(idxs):
+                self._exact_channel_out(x, i, outs[j], new)
+        # the stream consumed off-grid residue; a later push must re-prime
+        self.stream_reset()
+        return new
+
     # -- streaming checkpoint/resume ----------------------------------------
 
     def checkpoint_stream(self, path, user_meta: dict | None = None) -> list:
@@ -968,7 +1138,11 @@ class ReceivePipeline:
         burst on air across the checkpoint is lost and everything after it
         decodes (the protocols synchronise themselves). The file is written
         to ``path.tmp``, synced, and renamed over ``path``: a crash
-        mid-save leaves the previous checkpoint whole."""
+        mid-save leaves the previous checkpoint whole. Production tier only,
+        as in the JAX package: the bit-exact tier is a parity oracle."""
+        if self.chain.exact:
+            raise NotImplementedError(
+                "checkpoint_stream covers the production streaming engine")
         s = self._stream
         if s is None:
             raise ValueError("no streaming state yet (push something first)")
@@ -1015,10 +1189,15 @@ class ReceivePipeline:
         """Rebuild the streaming state from a :meth:`checkpoint_stream`
         file and return the ``user_meta`` it was saved with. The pipeline
         must be configured as the one that wrote it (the fingerprint and
-        every state leaf's name, shape and dtype are checked); the file may
-        come from either device. Decoders are recreated in SEARCH and every
-        gated channel is marked gapped, so its next fetched block splices
-        the saved tail and notifies the gap."""
+        every saved array's name, shape and dtype are checked against a
+        fresh stream's before anything changes: a file that fails leaves
+        the current stream, or none, as it was); the file may come from
+        either device. Decoders are recreated in SEARCH and every gated
+        channel is marked gapped, so its next fetched block splices the
+        saved tail and notifies the gap."""
+        if self.chain.exact:
+            raise NotImplementedError(
+                "checkpoint_stream covers the production streaming engine")
         with np.load(path) as data:
             meta = json.loads(bytes(data["__meta__"]).decode())
             arrays = {k: data[k] for k in data.files if k != "__meta__"}
@@ -1027,40 +1206,63 @@ class ReceivePipeline:
                 "checkpoint was written by a differently-configured "
                 f"pipeline: {meta['fingerprint']} != "
                 f"{self._stream_fingerprint()}")
-        self.stream_reset()
-        self._stream_init(None)
-        s = self._stream
+        s = self._new_stream(None)
         want = []
         _map_state(s["st"], lambda n, v: want.append([n, *_leaf_meta(v)]))
         if meta["leaves"] != want:
-            self.stream_reset()     # leave no half-made stream behind
             raise ValueError(f"checkpoint state {meta['leaves']} does not "
                              f"match this pipeline's {want}")
 
+        def saved(key, shape, dtype):
+            arr = arrays.get(key)
+            if arr is None:
+                raise ValueError(f"checkpoint has no {key!r} array")
+            if ((shape is not None and list(arr.shape) != list(shape))
+                    or arr.dtype != np.dtype(dtype)):
+                raise ValueError(
+                    f"checkpoint array {key!r} is {arr.dtype}"
+                    f"{list(arr.shape)}, this pipeline's is {np.dtype(dtype)}"
+                    f"{list(shape) if shape is not None else ''}")
+            return arr
+
+        st_arrays = {name: saved(f"state.{name}", shape, dtype)
+                     for name, shape, dtype in want}
+        buf = saved("buf", None, self._wire_dtype)
+        if buf.ndim != 2 or buf.shape[1] != 2:
+            raise ValueError(f"checkpoint buffer is {list(buf.shape)}, not "
+                             "[n, 2]")
+        fetched = saved("fetched", [len(self.channels)], np.int64)
+        tails = {i: (saved(f"tailpcm_{i}", None, np.int16)
+                     if meta["tail_rows"].get(str(i)) else None)
+                 for i in s["gap"]}
+
         def load(name, tmpl):
-            arr = arrays[f"state.{name}"]
+            arr = st_arrays[name]
             if isinstance(tmpl, torch.Tensor):
                 return torch.from_numpy(np.array(arr)).to(self.device)
             return int(arr)
 
         s["st"] = _map_state(s["st"], load)
-        buf = arrays["buf"]
         s["buf"] = [buf] if buf.shape[0] else []
         s["buf_len"] = int(buf.shape[0])
         s["lead_drop"] = {int(k): int(v) for k, v in meta["lead_drop"].items()}
         s["hot"] = dict(meta["hot"])
         s["blocks"] = int(meta["blocks"])
-        s["fetched"] = np.array(arrays["fetched"])
+        s["fetched"] = np.array(fetched)
+        for i in s["gap"]:
+            s["gap"][i] = True
+            s["tail_pcm"][i] = tails[i]
+        # everything read and checked: swap the new stream in
+        self.stream_reset()
+        self._stream = s
+        if self.drain_async:
+            self._start_drain_worker(s, self._drain)
         # the state machines were not saved: recreate them, so they do
         # restart in SEARCH (notify_gap is only valid there)
         for i, spec in enumerate(self.channels):
             if self._decoders[i] is not None:
                 self._decoders[i] = _make_decoder(
                     spec.protocol, spec.center_freq_hz, self._ais_packet_hook)
-        for i in s["gap"]:
-            s["gap"][i] = True
-            s["tail_pcm"][i] = (arrays[f"tailpcm_{i}"]
-                                if meta["tail_rows"].get(str(i)) else None)
         return meta.get("user", {})
 
     def _stream_fingerprint(self) -> str:
@@ -1083,9 +1285,13 @@ class ReceivePipeline:
     # -- whole-capture API ---------------------------------------------------
 
     def process_capture(self, iq):
-        """Run a whole capture through the streaming engine. Returns a list
-        (one entry per channel) of decoded message lists, or the raw int16
-        PCM for ``pcm`` channels."""
+        """Run a whole capture. Returns a list (one entry per channel) of
+        decoded message lists, or the raw int16 PCM for ``pcm`` channels.
+        The production tier streams it through :meth:`push`/:meth:`flush`;
+        the bit-exact tier takes the stage-by-stage host path (as in the
+        JAX package), :meth:`_process_capture_host`."""
+        if self.chain.exact:
+            return self._process_capture_host(iq)
         self.stream_reset()
         results = self.push(iq)
         for i, part in enumerate(self.flush()):
@@ -1094,4 +1300,25 @@ class ReceivePipeline:
             if spec.protocol == "pcm":
                 results[i] = (np.concatenate(results[i]) if results[i]
                               else np.zeros(0, np.int16))
+        return results
+
+    def _process_capture_host(self, iq):
+        """Stage by stage over the whole capture, host arrays between the
+        stages: the channelizer's ``process_array``, polarity, each
+        channel's ``ResamplerChain.process_array``, the exact DC blocker,
+        the decoders."""
+        if self.wire_fmt != "cs16":
+            iq = self._widen_host(self._coerce_wire(iq))
+        pcm = self.chain.process_array(np.asarray(iq, np.int16))
+        results = []
+        for i, audio in enumerate(self._exact_polarity(pcm)):
+            gid = self._ratio_gid[i]
+            if gid is not None:
+                audio = self._rs_chains[gid].process_array(audio)
+            if self.channels[i].dc_block:
+                audio = self._exact_dc(torch.zeros(
+                    (1, 3), dtype=torch.int32, device=self.device), i, audio)
+            dec = self._decoders[i]
+            results.append(np.asarray(audio, np.int16) if dec is None
+                           else dec.scan(np.asarray(audio)))
         return results

@@ -23,7 +23,9 @@ import numpy as np
 import torch
 
 from tsl_sdr_tpu_torch.ops import dc_blocker, polyphase, q14
-from tsl_sdr_tpu_torch.ops.frame_resampler import resample_capture
+from tsl_sdr_tpu_torch.ops.frame_resampler import (frame_resample,
+                                                   resample_capture)
+from tsl_sdr_tpu_torch.ops.packed_fir import next_carry
 from tsl_sdr_tpu_torch.ops.row_resampler import row_resample
 
 
@@ -91,6 +93,44 @@ class ResamplerChain:
         dc, out = self._dc_block(state.dc, out[0])
         return ResamplerChainState(resampler=carry[0], dc=dc), out
 
+    def steps(self, carry: torch.Tensor, block: torch.Tensor):
+        """``c`` chained :meth:`step` s of the main plan, without the DC
+        blocker, for every channel of a ratio group in one K3 or K4 call:
+        carry [G, carry_len] int16, block [G, c * block_in] int16 ->
+        (carry, out [G, c * block_out]). The plan's windows tile the input
+        (``block_in`` is a whole number of rows, or of frames), so one call
+        over ``carry ++ block`` reads what the ``c`` steps read."""
+        plan = self.plan
+        n = block.shape[1]
+        if n == 0 or n % plan.block_in:
+            raise ValueError(f"{n} samples per channel is not a whole, "
+                             f"nonzero number of {plan.block_in}-sample "
+                             "steps")
+        taps = self._taps[plan.block_in]
+        if plan.k_row:
+            out = row_resample(carry, block, taps, row_in=plan.row_in,
+                               out=self._out)
+        else:
+            out = frame_resample(
+                carry, block, taps,
+                frames=n // plan.block_in * plan.block_out // plan.i_rep,
+                out=self._out)
+        return (next_carry(carry, block, plan.carry_len),
+                out.reshape(block.shape[0], -1))
+
+    def tail(self, carry: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+        """The last, shorter step of a stream, without the DC blocker:
+        carry [G, carry_len] int16 (the live carry, or the trailing input
+        history), block [G, n] int16 with ``n`` below ``block_in`` and a
+        whole number of ``d_rep`` -> out [G, n * I / D]. Its plan has the
+        main plan's taps, phase and carry length, so it chains from
+        :meth:`steps` bit for bit."""
+        tp = self._tail_plan(block.shape[1])
+        _, out = polyphase.resample_step(tp, carry, block,
+                                         self._taps[tp.block_in],
+                                         exact=self.exact)
+        return out
+
     def _tail_plan(self, tail_use: int) -> polyphase.ResamplerPlan:
         """Plan sized for the sub-block_in capture tail (``tail_use`` input
         samples on the d_rep grid). Same taps/phase0 as the main plan, so a
@@ -101,6 +141,9 @@ class ResamplerChain:
                 self._coeffs_q14, p.interpolation, p.decimation,
                 block_out_target=tail_use * p.i_rep // p.d_rep,
                 phase0=p.phase0, align_k_row=False)
+            if tp.carry_len != p.carry_len:
+                raise AssertionError(f"tail plan carries {tp.carry_len}, "
+                                     f"the main plan {p.carry_len}")
             self._tail_plans[tail_use] = tp
             self._taps[tp.block_in] = polyphase.plan_taps(
                 tp, device=self.device)
@@ -135,15 +178,10 @@ class ResamplerChain:
         outs = [out]
         tail_use = (usable - n_main) // d_rep * d_rep
         if tail_use:
-            tp = self._tail_plan(tail_use)
             pos = c_len + n_main
-            # the carry is pure trailing input history; the tail plan's
-            # carry_len equals the main plan's (same taps and phase0)
-            carry = pcm[None, pos - tp.carry_len:pos]
-            _, t_out = polyphase.resample_step(
-                tp, carry, pcm[None, pos:pos + tail_use],
-                self._taps[tp.block_in], exact=self.exact)
-            outs.append(t_out[0])
+            # the carry is pure trailing input history
+            outs.append(self.tail(pcm[None, pos - c_len:pos],
+                                  pcm[None, pos:pos + tail_use])[0])
         out = torch.cat(outs) if len(outs) > 1 else outs[0]
         if self.dc_coeff is None:
             return out

@@ -1,6 +1,8 @@
-"""FM quadrature discriminator on channelized baseband (plain torch).
+"""FM quadrature discriminators (plain torch): the production tier's on
+channelized baseband, and the bit-exact tier's on Q.14 IQ.
 
-Port of ``tsl_sdr_tpu/ops/fm.py:66-142`` ``fm_from_baseband``. The
+Port of ``tsl_sdr_tpu/ops/fm.py:66-142`` ``fm_from_baseband`` and
+``:145-158`` ``fm_demod_np`` (:func:`fm_demod_exact`, see there). The
 reference derotates each FIR output by ``e^{j*omega_d*k}`` and discriminates
 ``arg(y[k] conj(y[k-1]))`` (``multifm/fm_demod.c:36-83``); the rotation only
 adds ``omega_d`` to each phase difference, so it is folded into a post-atan2
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from tsl_sdr_tpu_torch.ops import q14
+from tsl_sdr_tpu_torch.ops.atan2 import fast_atan2
 
 PI_F32 = float(np.float32(np.pi))
 HALF_PI_F32 = float(np.float32(np.pi / 2))
@@ -83,3 +86,29 @@ def fm_from_baseband(ar: torch.Tensor, ai: torch.Tensor,
     pcm = torch.trunc(phi / torch.full_like(phi, pi) * float(q14.Q14_ONE))
     pcm = pcm.to(torch.int16)
     return pcm.reshape(ar.shape), arf[-1].clone(), aif[-1].clone()
+
+
+def fm_demod_exact(ch: torch.Tensor, last: torch.Tensor):
+    """The reference discriminator on channelized Q.14 IQ
+    (``multifm/fm_demod.c:36-83``), bit for bit the JAX ``fm_demod_np``.
+
+    ch: [..., K, 2] int16 (re, im); last: [..., 2] int32, the sample before
+    the first. Returns (pcm [..., K] int16, new last [..., 2] int32). The
+    conjugate products are int32 and wrap (``-32768^2 * 2`` is ``-2^31``):
+    they are formed in int64 and narrowed. int32 -> float32 rounds to
+    nearest; ``(phi / pi) * 16384`` is evaluated in float64 (the divide by
+    a tensor, so that the card divides), stored to float32, truncated."""
+    a = ch.to(torch.int64)
+    prev = torch.cat([last.to(torch.int64)[..., None, :], a[..., :-1, :]],
+                     dim=-2)
+    # int64 -> int32 narrows modulo 2^32, as the reference's int32 wraps
+    s_re = (a[..., 0] * prev[..., 0] + a[..., 1] * prev[..., 1]).to(
+        torch.int32)
+    s_im = (a[..., 1] * prev[..., 0] - a[..., 0] * prev[..., 1]).to(
+        torch.int32)
+    phi = fast_atan2(s_im.to(torch.float32), s_re.to(torch.float32))
+    phi = phi.to(torch.float64)
+    scaled = (phi / torch.full_like(phi, np.pi) * float(q14.Q14_ONE)).to(
+        torch.float32)
+    pcm = torch.trunc(scaled).to(torch.int16)
+    return pcm, ch[..., -1, :].to(torch.int32)

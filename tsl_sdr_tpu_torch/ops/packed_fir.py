@@ -1,8 +1,10 @@
 """Lane-packed multi-channel decimating FIR: numpy plan + plain torch step.
 
 Port of ``tsl_sdr_tpu/ops/packed_fir.py:62-193`` (plan builder, copied as
-numpy because the JAX module imports jax at load) and ``:321-403`` (the
-streaming step). The interleaved int16 stream is cut into rows of
+numpy because the JAX module imports jax at load), ``:321-403`` (the
+streaming step), ``:406-464`` (its bit-exact tier, the plain version of
+kernel K5, :mod:`tsl_sdr_tpu_torch.ops.exact_fir`) and ``:467-487`` (the
+integer NCO of the fast tier's debug tap). The interleaved int16 stream is cut into rows of
 ``ROW = lcm(2*D, 128)`` values; each row yields ``OPR = ROW/(2*D)``
 decimated outputs per channel, and output row ``r`` is
 
@@ -154,17 +156,16 @@ def init_packed_carry(plan: PackedFirPlan, prefix=None, *,
     return torch.from_numpy(prefix.reshape(-1).copy()).to(device)
 
 
-def packed_fir_step(plan: PackedFirPlan, carry_vals: torch.Tensor,
-                    block: torch.Tensor, w_f64: torch.Tensor):
-    """One streaming step of the plain tier.
+def packed_fir_sums(plan: PackedFirPlan, carry_vals: torch.Tensor,
+                    block: torch.Tensor, w_f64: torch.Tensor) -> torch.Tensor:
+    """The chunked product ``P[r] = sum_i rows[r + i] @ W_i`` as wrapped
+    int32 ``[rows, 2*halfcols]`` (columns [re | im]).
 
     carry_vals [carry_vals] int16, block [2N] int16 flat interleaved (N a
     multiple of ``plan.block_quantum``), ``w_f64`` the tap chunks as one
     float64 tensor ``[cr+1, ROW, COLS]``. Each chunk product is exact in
     float64; the sum wraps to int32 like the reference's MAC
-    (``filter/direct_fir.c:366-385``). Returns (new_carry, ar, ai) with
-    ar/ai ``[rows, halfcols]`` float32 — channelized, decimated, not
-    derotated baseband in flat (k, c) order."""
+    (``filter/direct_fir.c:366-385``)."""
     row, cr = plan.row, plan.cr_rows
     if block.numel() % row:
         raise ValueError(f"block of {block.numel()} values is not a "
@@ -175,10 +176,53 @@ def packed_fir_step(plan: PackedFirPlan, carry_vals: torch.Tensor,
     for i in range(1, cr + 1):
         nnz = plan.chunk_nnz[i] if plan.chunk_nnz else row
         p += rows[i:i + r_valid, :nnz] @ w_f64[i, :nnz]
-    p = p.to(torch.int64).to(torch.int32).to(torch.float32)
+    return p.to(torch.int64).to(torch.int32)
+
+
+def packed_fir_step(plan: PackedFirPlan, carry_vals: torch.Tensor,
+                    block: torch.Tensor, w_f64: torch.Tensor):
+    """One streaming step of the plain tier (operands as
+    :func:`packed_fir_sums`). Returns (new_carry, ar, ai) with ar/ai
+    ``[rows, halfcols]`` float32 — channelized, decimated, not derotated
+    baseband in flat (k, c) order."""
+    p = packed_fir_sums(plan, carry_vals, block, w_f64).to(torch.float32)
     half = plan.halfcols
     return (next_carry(carry_vals, block, plan.carry_vals),
             p[:, :half], p[:, half:2 * half])
+
+
+def packed_fir_step_exact(plan: PackedFirPlan, carry_vals: torch.Tensor,
+                          block: torch.Tensor, w_f64: torch.Tensor):
+    """The bit-exact tier of :func:`packed_fir_step` (int32 modular sums
+    are order-free, so the chunked product is the reference's MAC exactly).
+    Returns (new_carry, a_re, a_im) with a_re/a_im ``[rows, halfcols]``
+    int16: the Q.28 -> Q.14 rounded, not yet derotated sums (reference
+    rounding ``filter/complex.h:30-34``)."""
+    p = packed_fir_sums(plan, carry_vals, block, w_f64)
+    half = plan.halfcols
+    return (next_carry(carry_vals, block, plan.carry_vals),
+            q14.round_q28_q14(p[:, :half]),
+            q14.round_q28_q14(p[:, half:2 * half]))
+
+
+def omega_turns_i32(omega_d: np.ndarray) -> np.ndarray:
+    """Per-output phase increment as signed-int32 turns (2^32 = one turn)."""
+    turns = np.asarray(omega_d, dtype=np.float64) / (2.0 * np.pi)
+    frac = turns - np.round(turns)
+    return np.round(frac * 2.0**32).astype(np.int64).astype(np.int32)
+
+
+def nco_rotate(ar: torch.Tensor, ai: torch.Tensor, omega_i32: torch.Tensor,
+               k0: int):
+    """Rotate baseband ``[K, C]`` float32 by ``e^{j*omega_d*k}`` with an
+    integer NCO: the phase ``k * omega`` accumulates in wrapping int32
+    turns (exact at any absolute index ``k``), then one float32 angle."""
+    k = k0 + torch.arange(ar.shape[0], dtype=torch.int64, device=ar.device)
+    ph = (k[:, None] * omega_i32.to(torch.int64)[None, :]).to(torch.int32)
+    th = ph.to(torch.float32) * float(np.float32(2.0 * np.pi / 2.0**32))
+    rr = torch.cos(th)
+    ri = torch.sin(th)
+    return ar * rr - ai * ri, ar * ri + ai * rr
 
 
 def next_carry(carry_vals: torch.Tensor, block: torch.Tensor,

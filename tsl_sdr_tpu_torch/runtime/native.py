@@ -1,10 +1,13 @@
 """ctypes bindings for the port's native C++ runtime (``native/tslstream.cc``).
 
-The port's copy of ``tsl_sdr_tpu/runtime/native.py:129-310``: the decoders'
+The port's copy of ``tsl_sdr_tpu/runtime/native.py:129-458``: the decoders'
 sample state machines (:class:`PocsagNative`, :class:`FlexNative`,
-:class:`AisNative`) and the batch BCH(31,21) corrector. The source is the
-JAX package's, copied whole; its sources, sinks, rotator and Costas loop
-are built too and bound when a ported stage needs them.
+:class:`AisNative`), the batch BCH(31,21) corrector, the bit-exact tier's
+serial Q.14 rotator (:func:`rotator_seq`), and the threaded file/FIFO
+source and EPIPE-tolerant sink of ``multifm-torch``'s native runtime
+(:class:`NativeSource`, :class:`NativeSink`). The source is the JAX
+package's, copied whole; its Costas loop is built too and bound when a
+ported stage needs it.
 
 The library is built with ``g++`` at first use into
 ``build/tsl_sdr_tpu_torch/`` beside the package, under a name keyed on a
@@ -41,6 +44,8 @@ _SZ = ctypes.c_size_t
 _I16P = ctypes.POINTER(ctypes.c_int16)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _U32P = ctypes.POINTER(ctypes.c_uint32)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_U64P = ctypes.POINTER(ctypes.c_uint64)
 # name -> (restype, argtypes)
 SIGNATURES = {
     "tsl_bch3121_decode": (None, [_U32P, ctypes.c_long, _U32P, _U8P]),
@@ -62,7 +67,20 @@ SIGNATURES = {
     "tsl_ais_crc_rejects": (ctypes.c_uint64, [_P]),
     "tsl_ais_state": (ctypes.c_int, [_P]),
     "tsl_ais_on_pcm": (ctypes.c_long, [_P, _I16P, _SZ, _U8P, _SZ]),
+    "tsl_rotator_seq": (None, [_I16P, _I32P, _SZ, _SZ, _I16P]),
+    "tsl_source_new": (_P, [ctypes.c_char_p, ctypes.c_int, _SZ, _SZ,
+                            ctypes.c_double, ctypes.c_int]),
+    "tsl_source_start": (ctypes.c_int, [_P]),
+    "tsl_source_read": (ctypes.c_long, [_P, _I16P, _SZ]),
+    "tsl_source_stats": (None, [_P, _U64P]),
+    "tsl_source_free": (None, [_P]),
+    "tsl_sink_new": (_P, [ctypes.c_char_p]),
+    "tsl_sink_write": (ctypes.c_long, [_P, _I16P, _SZ]),
+    "tsl_sink_stats": (None, [_P, _U64P]),
+    "tsl_sink_free": (None, [_P]),
 }
+# wire formats of the native source (its ingest widening)
+FORMATS = {"cs16": 0, "cs8": 1, "cu8": 2, "rtl_u8": 3}
 
 
 def _keyed_path(src: Path, stem: str, command) -> Path:
@@ -298,3 +316,109 @@ class AisNative(_Handle):
     @property
     def crc_rejects(self) -> int:
         return int(self._lib.tsl_ais_crc_rejects(self._h))
+
+
+def rotator_seq(rot: np.ndarray, incr: np.ndarray, n: int) -> np.ndarray:
+    """The bit-exact tier's Q.14 derotator sequence.
+
+    rot: [C, 2] int16 current rotator, UPDATED IN PLACE to the state after
+    ``n`` outputs; incr: [C, 2] int32 Q.14 increment. Returns [n, C, 2]
+    int16, the rotator BEFORE each output: the reference's use-then-advance
+    recurrence with round-half-up and no renormalisation
+    (``filter/direct_fir.c:152-172``), serial, so it runs here on the host.
+    """
+    lib = load()
+    if rot.dtype != np.int16 or not rot.flags.c_contiguous:
+        raise ValueError("rot must be a C-contiguous int16 array (it is "
+                         "updated in place)")
+    incr = np.ascontiguousarray(incr, np.int32)
+    c = rot.shape[0]
+    out = np.empty((n, c, 2), dtype=np.int16)
+    lib.tsl_rotator_seq(rot.ctypes.data_as(_I16P), incr.ctypes.data_as(_I32P),
+                        c, n, out.ctypes.data_as(_I16P))
+    return out
+
+
+class NativeSource:
+    """Background-threaded IQ source over a file or FIFO: a C++ reader
+    thread fills a pool of frames while the caller computes (the
+    reference's receiver thread, ``multifm/receiver.c:78-98``).
+
+    ``fmt`` selects the ingest widening (cs16/cs8/cu8/rtl_u8), ``pace_sps``
+    (complex samples/s) paces delivery like ``file_if.c``, and
+    ``drop_on_full`` drops and counts frames when the pool is full instead
+    of holding the reader back."""
+
+    def __init__(self, path, fmt="cs16", frame_samples=65536, pool_frames=64,
+                 pace_sps=0.0, drop_on_full=False):
+        self._lib = load()
+        self._h = self._lib.tsl_source_new(
+            str(path).encode(), FORMATS[fmt], 2 * frame_samples, pool_frames,
+            2.0 * pace_sps, 1 if drop_on_full else 0)
+        if not self._h:
+            raise OSError(f"cannot open source {path}")
+        self._lib.tsl_source_start(self._h)
+
+    def read(self, n_samples: int) -> np.ndarray:
+        """Blocking read of up to ``n_samples``; a short result means EOF.
+        Returns flat interleaved int16 values [2 * got]."""
+        out = np.empty(2 * n_samples, dtype=np.int16)
+        got = self._lib.tsl_source_read(self._h, out.ctypes.data_as(_I16P),
+                                        out.size)
+        return out[: got - (got % 2)]
+
+    @property
+    def stats(self) -> dict:
+        if not self._h:
+            raise ValueError("source is closed")
+        buf = (ctypes.c_uint64 * 4)()
+        self._lib.tsl_source_stats(self._h, buf)
+        return {"values_in": buf[0], "values_out": buf[1],
+                "dropped_frames": buf[2], "eof": bool(buf[3])}
+
+    def close(self):
+        if self._h:
+            self._lib.tsl_source_free(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class NativeSink:
+    """PCM sink that drops and counts on EPIPE, like the reference's demod
+    thread (``multifm/demod.c:93-110``)."""
+
+    def __init__(self, path):
+        self._lib = load()
+        self._h = self._lib.tsl_sink_new(str(path).encode())
+        if not self._h:
+            raise OSError(f"cannot open sink {path}")
+
+    def write(self, pcm: np.ndarray) -> int:
+        pcm = np.ascontiguousarray(pcm, dtype=np.int16)
+        return self._lib.tsl_sink_write(self._h, pcm.ctypes.data_as(_I16P),
+                                        pcm.size)
+
+    @property
+    def stats(self) -> dict:
+        if not self._h:
+            raise ValueError("sink is closed")
+        buf = (ctypes.c_uint64 * 4)()
+        self._lib.tsl_sink_stats(self._h, buf)
+        return {"values_out": buf[1], "dropped_writes": buf[2],
+                "broken": bool(buf[3])}
+
+    def close(self):
+        if self._h:
+            self._lib.tsl_sink_free(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -12,7 +12,9 @@ pipeline's ``s["st"]`` tree on the XLA tier:
      "tails": {protocol: [G, tail] uint8 prefilter bits}}
 
 so a JAX pipeline's state converts one to one into the port's and back, and
-both pipelines can start from the same mid-stream state. The JAX side's
+both pipelines can start from the same mid-stream state. The bit-exact
+tier's ``ExactPackedState(carry, rot, fm_last)`` converts the same way
+(the rotator stays a host array in both packages). The JAX side's
 leaves are read through ``np.asarray`` and its tuple types come from the
 caller (the JAX plan class, or a JAX state tree used as a template), so this
 module never imports the JAX package's jax modules.
@@ -23,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tsl_sdr_tpu_torch.models.channelizer import MultifmFastState
+from tsl_sdr_tpu_torch.models.channelizer import (ExactPackedState,
+                                                   MultifmFastState)
 from tsl_sdr_tpu_torch.models.resampler import ResamplerChainState
 from tsl_sdr_tpu_torch.ops.dc_blocker import DcBlockerState
 from tsl_sdr_tpu_torch.ops.packed_fir import PackedFirPlan
@@ -108,3 +111,20 @@ def chain_state_to_jax(st: ResamplerChainState, like):
     return type(like)(
         resampler=type(like.resampler)(carry=n(st.resampler)),
         dc=type(like.dc)(*(n(x) for x in st.dc)))
+
+
+def exact_state_from_jax(st, *, device="cpu") -> ExactPackedState:
+    """A JAX ``ExactPackedState`` (between steps) -> the port's, on
+    ``device``."""
+    return ExactPackedState(
+        carry=_t(st.carry, device, np.int16),
+        rot=np.array(st.rot, dtype=np.int16),
+        fm_last=_t(st.fm_last, device, np.int32))
+
+
+def exact_state_to_jax(st: ExactPackedState, like):
+    """The port's exact state -> a JAX ``ExactPackedState`` of numpy
+    leaves, with the tuple type of ``like`` (a JAX exact state)."""
+    return type(like)(carry=st.carry.detach().cpu().numpy().copy(),
+                      rot=np.array(st.rot, dtype=np.int16),
+                      fm_last=st.fm_last.detach().cpu().numpy().copy())
