@@ -11,7 +11,9 @@ deployment (``tsl_sdr_tpu_torch/testing/pager.py``: 1.2288 Msps, decimate by
 32, 577 taps, 6 POCSAG + 2 FLEX channels, 4,177,920-sample blocks), the
 decoder front end (``decoder-torch``, ``resampler-torch``) at the
 reference's resampler settings, the pipeline at decimation 50, the
-bit-exact tier, and ``multifm-torch`` at ``etc/multifm_rtlsdr_8ch.json``:
+bit-exact tier, ``multifm-torch`` at ``etc/multifm_rtlsdr_8ch.json``, and
+wide channel banks (BENCH_SUITE's 64 and 256 channels, the Airspy band's
+232):
 
 1. the card's name and power limit; the kernels' build (nvcc) and the
    decoders' native state machines (g++);
@@ -101,10 +103,24 @@ bit-exact tier, and ``multifm-torch`` at ``etc/multifm_rtlsdr_8ch.json``:
    rtl_u8 capture with one POCSAG burst per channel: both tiers under both
    I/O runtimes, and the production tier through the mock RTL-SDR; each
    channel's PCM must decode its burst, and each tier's PCM must equal the
-   plain-version run byte for byte; walls and Msps per run.
+   plain-version run byte for byte; walls and Msps per run;
+17. wide channel banks: (a) K1 and K5 at BENCH_SUITE's channelizer block
+   (16,711,680 samples at 1 Msps, decimation 40, 128 taps) at 64 and 256
+   channels (the latter in channel blocks), with the chain's grouped
+   operands (each tap tile's non-zero k-steps only) and with full-window
+   ones (``grouped=False``): both kernels, both K5 epilogues, against
+   their plain versions on the block, a ragged block, adversarial input
+   and two halves, exactly equal; device times of each form in turns,
+   beside the plain version, the bound and, for K5's raw sums, one float64
+   ``torch.matmul`` of the same product; (b) ``multifm-torch`` at
+   ``etc/multifm_airspy.json``'s rate, decimation and taps widened to 232
+   channels (12.5 kHz apart within +-1.45 MHz) on a 3 s cs16 capture with
+   a POCSAG burst on 8 of them: both tiers, grouped launches counted,
+   every burst decoded, each tier's PCM equal to the plain-version run
+   byte for byte on all 232 channels.
 
-Each path of phases 4, 8, 9, 10, 14, 15 and 16 and each run of phase 12
-runs with the
+Each path of phases 4, 8, 9, 10, 14, 15, 16 and 17 and each run of phase
+12 runs with the
 kernels' launch counts set to 0 just before it and read just after; a
 kernel of the path that never launched fails the run. jax, jaxlib and
 the JAX package (``tsl_sdr_tpu``) are made unimportable first, and none
@@ -232,7 +248,9 @@ def launch_counts() -> dict:
     from tsl_sdr_tpu_torch.ops import row_resampler as k3
 
     return {"chain_fm": k1.chain_fm.launches,
+            "chain_fm_grouped": k1.chain_fm.grouped_launches,
             "exact_fir": k5.exact_fir.launches,
+            "exact_fir_grouped": k5.exact_fir.grouped_launches,
             "row_resample": k3.row_resample.launches,
             "row_resample_q14": k3.row_resample.launches_q14,
             "frame_resample": k4.frame_resample.launches,
@@ -247,7 +265,9 @@ def zero_launch_counts() -> None:
     from tsl_sdr_tpu_torch.ops import row_resampler as k3
 
     k1.chain_fm.launches = 0
+    k1.chain_fm.grouped_launches = 0
     k5.exact_fir.launches = 0
+    k5.exact_fir.grouped_launches = 0
     k3.row_resample.launches = 0
     k3.row_resample.launches_q14 = 0
     k4.frame_resample.launches = 0
@@ -385,31 +405,26 @@ def make_capture(pager, block_size: int):
 
 
 def adversarial_chain_taps(taps):
-    """``taps`` with every tap of the plan's [U, 2*HC] matrix set to
-    +-32767 (random signs), split for the kernel and stacked for the plain
-    version: against input of -32768 it drives every byte product to its
-    extreme and the int32 sums through many wraps."""
-    import copy
-
+    """``taps`` (a ChainTaps) rebuilt with every tap its layout may hold
+    set to +-32767 (random signs), in the same form: against input of
+    -32768 it drives every byte product to its extreme and the int32 sums
+    through many wraps. Chunked taps get the whole [U, 2*HC] matrix;
+    grouped ones keep the layout's zeros, which the grouped form leaves
+    out."""
     import numpy as np
-    import torch
 
-    from tsl_sdr_tpu_torch.ops import imma_split, packed_fir
+    from tsl_sdr_tpu_torch.ops import chain as k1
+    from tsl_sdr_tpu_torch.ops import packed_fir
 
     plan = taps.plan
-    shape = packed_fir.tap_matrix_i16(plan).shape
+    support = packed_fir.tap_support(plan)
     rng = np.random.default_rng(17)
-    w = np.where(rng.random(shape) < 0.5, -32767, 32767).astype(np.int16)
-    adv = copy.copy(taps)
-    hi, lo = imma_split.fragment_planes(w)
-    dev = taps.w_hi.device
-    adv.w_hi = torch.from_numpy(hi).to(dev)
-    adv.w_lo = torch.from_numpy(lo).to(dev)
-    stack = np.zeros(((plan.cr_rows + 1) * plan.row, shape[1]), np.float64)
-    stack[:plan.win] = w
-    adv.w_f64 = torch.from_numpy(
-        stack.reshape(plan.cr_rows + 1, plan.row, shape[1])).to(dev)
-    return adv
+    w = np.where(rng.random(support.shape) < 0.5, -32767, 32767)
+    if taps.grouped:
+        w = np.where(support, w, 0)
+    return k1.ChainTaps(packed_fir.with_taps_i16(plan, w.astype(np.int16)),
+                        taps.omega_c.cpu().numpy(), device=taps.w_hi.device,
+                        grouped=taps.grouped)
 
 
 def check_chain(pipe, iq, device, where: str = "pager"):
@@ -1523,12 +1538,15 @@ def k5_library(taps, carry, block):
     laid out beforehand, against the stacked tap chunks."""
     import torch
 
+    import numpy as np
+
     plan = taps.plan
     total = torch.cat([carry, block]).to(torch.float64)
     rows = block.numel() // plan.row
     k = (plan.cr_rows + 1) * plan.row
     a = total.as_strided((rows, k), (plan.row, 1)).contiguous()
-    w = taps.w_f64.reshape(k, -1).contiguous()
+    w = torch.from_numpy(np.concatenate(plan.w_chunks_i16).astype(
+        np.float64)).to(block.device)
     return lambda: torch.matmul(a, w)
 
 
@@ -2052,8 +2070,287 @@ def exact_phases(pipe, iq, expected, device, totals: dict) -> dict:
     return res
 
 
+# -- phase 17: wide channel banks (grouped operands, channel blocks) --------
+
+# BENCH_SUITE's channelizer block (bench_suite.py prep_multifm): 52,224
+# packed rows of 640 values at 1 Msps / decimation 40
+WIDE_BLOCK = 16_711_680
+WIDE_CHANNELS = (64, 256)
+
+
+def bench_bank(nr_ch: int):
+    """BENCH_SUITE's channelizer shape (bench_suite.py prep_multifm): 1
+    Msps, decimation 40, a 128-tap low-pass, ``nr_ch`` channels."""
+    import numpy as np
+
+    from tsl_sdr_tpu_torch.utils.filter_design import firdes_low_pass
+
+    fs = 1_000_000
+    offs = np.random.default_rng(0).integers(-fs // 3, fs // 3, size=nr_ch)
+    return firdes_low_pass(1.0, fs, 12_500, 9_000)[:128], offs, fs, 40
+
+
+def check_wide(forms: dict, carry, block, prev, where: str) -> int:
+    """K1 and K5 (both epilogues) against their plain versions with each
+    of ``forms`` (name -> ChainTaps): the whole block, 7 rows short of it
+    and adversarial input, then two halves against the whole. Exactly
+    equal; returns the largest difference (0)."""
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import chain as k1
+    from tsl_sdr_tpu_torch.ops import exact_fir as k5
+
+    worst = 0
+    for form, taps in forms.items():
+        plan = taps.plan
+        tr = taps.tile_rows
+        adv = adversarial_chain_taps(taps)
+        adv_vals = torch.full((plan.carry_vals + (3 * tr + 5) * plan.row,),
+                              -32768, dtype=torch.int16, device=block.device)
+        cases = {
+            "block": (taps, carry, block),
+            "7 rows short": (taps, carry, block[:-7 * plan.row]),
+            "adversarial": (adv, adv_vals[:plan.carry_vals],
+                            adv_vals[plan.carry_vals:]),
+        }
+        for case, (tp, c, b) in cases.items():
+            got, gprev = k1.chain_fm(tp, c, prev, b)
+            ref, rprev = k1.chain_fm_plain(tp, c, prev, b)
+            errs = [max_err(got, ref), max_err(gprev, rprev)]
+            for out in ("q14", "raw"):
+                g5 = k5.exact_fir(tp, c, b, out)
+                r5 = k5.exact_fir_plain(tp, c, b, out)
+                if out == "q14":
+                    g5, r5 = torch.stack(g5), torch.stack(r5)
+                errs.append(max_err(g5, r5))
+            del got, ref, g5, r5
+            log(f"K1/K5 vs plain, {where} {form} ({tp.tile_rows}-row tiles, "
+                f"{tp.chans_per_block} channels a block), {case}: max|diff| "
+                f"K1 {errs[0]:g}, carry {errs[1]:g}, K5 q14 {errs[2]:g}, "
+                f"raw {errs[3]:g}")
+            require(max(errs) == 0, f"{where} {form} {case}: {errs}")
+            worst = max(worst, max(errs))
+        half = (block.numel() // plan.row // 2) * plan.row
+        carry2 = block[half - plan.carry_vals:half].contiguous()
+        whole, wprev = k1.chain_fm(taps, carry, prev, block)
+        a, p_a = k1.chain_fm(taps, carry, prev, block[:half])
+        b, p_b = k1.chain_fm(taps, carry2, p_a, block[half:])
+        require(torch.equal(torch.cat([a, b]), whole)
+                and torch.equal(p_b, wprev),
+                f"K1 {where} {form}: two halves differ from the whole")
+        del whole, a, b
+        whole = k5.exact_fir(taps, carry, block, "raw")
+        parts = torch.cat([k5.exact_fir(taps, carry, block[:half], "raw"),
+                           k5.exact_fir(taps, carry2, block[half:], "raw")])
+        require(torch.equal(parts, whole),
+                f"K5 {where} {form}: two halves differ from the whole")
+        del whole, parts
+        log(f"K1/K5 ({where} {form}): two halves == whole block")
+    return worst
+
+
+def time_wide(forms: dict, carry, block, prev) -> dict:
+    """Device times at one wide shape: K1 and K5 (raw, and q14) with
+    grouped operands beside their plain versions (and, for K5 raw, one
+    float64 torch.matmul of the same product), then each kernel grouped
+    against the full window (grouped=False), in turns."""
+    from tsl_sdr_tpu_torch.ops import chain as k1
+    from tsl_sdr_tpu_torch.ops import exact_fir as k5
+
+    g, f = forms["grouped"], forms["full"]
+    plan = g.plan
+    rows = block.numel() // plan.row
+    io = nbytes(carry, block, g.w_hi, g.w_lo, g.ktab)
+    macs = fir_macs(plan, rows)
+    res = {}
+    k1_t = kernel_times(lambda: k1.chain_fm_plain(g, carry, prev, block),
+                        lambda: k1.chain_fm(g, carry, prev, block), 3, 20)
+    k1_t["bound_ms"], k1_t["bound_by"] = bound(
+        macs, io + nbytes(g.omega_row) + 2 * nbytes(prev)
+        + 2 * rows * plan.halfcols)
+    k5_t = kernel_times(lambda: k5.exact_fir_plain(g, carry, block, "raw"),
+                        lambda: k5.exact_fir(g, carry, block, "raw"), 3, 20,
+                        library=k5_library(g, carry, block))
+    k5_t["bound_ms"], k5_t["bound_by"] = bound(
+        macs, io + 4 * rows * 2 * plan.halfcols)
+    res["chain_fm"], res["exact_fir_raw"] = k1_t, k5_t
+    pairs = {
+        "chain_fm": lambda t: k1.chain_fm(t, carry, prev, block),
+        "exact_fir_raw": lambda t: k5.exact_fir(t, carry, block, "raw"),
+        "exact_fir_q14": lambda t: k5.exact_fir(t, carry, block, "q14"),
+    }
+    for name, fn in pairs.items():
+        g_ms, f_ms = in_turns(lambda: fn(f), lambda: fn(g), 20, 20,
+                              device_ms)
+        res.setdefault(name, {}).update(grouped_ms=g_ms, full_ms=f_ms)
+    res["exact_fir_q14"]["bound_ms"] = bound(
+        macs, io + 2 * rows * 2 * plan.halfcols)[0]
+    return res
+
+
+def wide_kernels(device) -> dict:
+    """Phase 17 (a): K1 and K5 at BENCH_SUITE's block (16,711,680 samples)
+    at 64 and 256 channels, with the chain's grouped operands and with
+    full-window ones (``grouped=False``): checks and times."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
+    from tsl_sdr_tpu_torch.ops.chain import ChainTaps
+
+    res = {"err": 0}
+    for nr_ch in WIDE_CHANNELS:
+        chain = MultifmChain(*bench_bank(nr_ch), device=device)
+        plan = chain.packed_plan
+        require(chain.grouped_plan is not None and chain.taps.grouped,
+                f"{nr_ch} channels: the chain did not pick the grouped form")
+        forms = {"grouped": chain.taps,
+                 "full": ChainTaps(plan, chain._omega_reduced, device=device,
+                                   grouped=False)}
+        rng = np.random.default_rng(nr_ch)
+        vals = torch.from_numpy(rng.integers(
+            -8000, 8000, size=plan.carry_vals + 2 * WIDE_BLOCK).astype(
+                np.int16)).to(device)
+        carry, block = vals[:plan.carry_vals], vals[plan.carry_vals:]
+        prev = torch.from_numpy(rng.normal(
+            scale=1e5, size=(2, nr_ch)).astype(np.float32)).to(device)
+        ktab = chain.taps.ktab.cpu().numpy()
+        log(f"wide bank, {nr_ch} channels: ROW={plan.row} U={plan.win} "
+            f"halfcols={plan.halfcols}; {block.numel() // plan.row} rows; "
+            f"grouped: {chain.taps.tile_rows}-row tiles x "
+            f"{chain.taps.chans_per_block} channels a block, "
+            f"{int((ktab[:, 1] - ktab[:, 0]).sum())} tile k-steps of "
+            f"{-(-plan.win // 32) * ktab.shape[0]}, taps "
+            f"{chain.taps.tap_block_bytes} B a block")
+        res["err"] = max(res["err"], check_wide(forms, carry, block, prev,
+                                                f"{nr_ch} ch"))
+        t = time_wide(forms, carry, block, prev)
+        for name, r in t.items():
+            log(f"{name} at {nr_ch} channels: grouped {r['grouped_ms']:.4f} "
+                f"ms, full window {r['full_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.5f} ms; {json.dumps(r)}")
+        res[nr_ch] = t
+        del vals, carry, block, forms, chain
+        torch.cuda.empty_cache()
+    return res
+
+
+# the 232 channels etc/multifm_airspy.json's settings hold at 12.5 kHz
+# within +-1.45 MHz; a POCSAG burst on every 28th from channel 5
+AIRSPY_CHANNELS = 232
+AIRSPY_BURSTS = tuple(5 + 28 * i for i in range(8))
+AIRSPY_SAMPLES = 9_000_000      # 3 s at 3 Msps
+
+
+def airspy_capture(offsets, fs):
+    """cs16 IQ of one POCSAG burst on each AIRSPY_BURSTS channel, 60,000
+    samples apart, in noise. Returns (iq [n, 2] int16, expected (capcode,
+    text) per burst)."""
+    import numpy as np
+
+    from tsl_sdr_tpu_torch.testing import pager, pocsag_gen
+
+    iq = np.random.default_rng(13).normal(scale=60,
+                                          size=(AIRSPY_SAMPLES, 2))
+    expected = []
+    for i, k in enumerate(AIRSPY_BURSTS):
+        cap, text = 1_300_000 + 100 * i, f"AIRSPY 232CH CH{k}"
+        bb = pocsag_gen.generate(
+            [pocsag_gen.PocsagBurst(capcode=cap, function=1, kind="alpha",
+                                    content=text)],
+            baud=1200, amplitude=4096, tail_bits=256)
+        x = pager.fm_mod(bb, 38_400, offsets[k], fs, amp=3000)
+        s = 100_000 + 60_000 * i
+        iq[s:s + len(x)] += x
+        expected.append((cap, text))
+    return np.clip(np.round(iq), -32768, 32767).astype(np.int16), expected
+
+
+def wide_multifm_runs(device, tmp: Path, totals: dict) -> dict:
+    """Phase 17 (b): ``multifm-torch`` at etc/multifm_airspy.json's rate,
+    decimation and taps with 232 channels, on a cs16 ``--iq-file``: both
+    tiers (python runtime) with the launch counts read around each run,
+    which must show grouped launches; every burst decodes; each tier's PCM
+    equals its plain-version run byte for byte on all 232 channels."""
+    import numpy as np
+
+    from tsl_sdr_tpu_torch.cli import multifm
+
+    base = json.loads((HERE / "etc" / "multifm_airspy.json").read_text())
+    fs = base["sampleRateHz"]
+    offsets = -1_450_000 + 12_500 * np.arange(AIRSPY_CHANNELS)
+    iq, expected = airspy_capture(offsets, fs)
+    cap_path = tmp / "airspy232.cs16"
+    iq.tofile(cap_path)
+    del iq
+
+    def run(tag, flags, kernels, plain=False):
+        cfg = {k: v for k, v in base.items() if k != "channels"}
+        cfg["channels"] = [
+            {"outFifo": str(tmp / f"w_{tag}_ch{k}.pcm"),
+             "chanCenterFreq": base["centerFreqHz"] + int(off)}
+            for k, off in enumerate(offsets)]
+        cfg_path = tmp / f"w_{tag}.json"
+        cfg_path.write_text(json.dumps(cfg))
+        argv = [str(cfg_path), "--iq-file", str(cap_path), "--iq-format",
+                "cs16", "--runtime", "python", "--device", device, *flags]
+
+        def go():
+            err = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                if plain:
+                    with plain_kernels():
+                        rc = multifm.main(argv)
+                else:
+                    rc = multifm.main(argv)
+            require(rc == 0, f"multifm-torch {tag} exited {rc}: "
+                    f"{err.getvalue()}")
+            return time.perf_counter() - t0
+
+        wall = go() if plain else on_path(f"multifm-torch {tag}", kernels,
+                                          go, totals)
+        pcm = [np.fromfile(tmp / f"w_{tag}_ch{k}.pcm", np.int16)
+               for k in range(AIRSPY_CHANNELS)]
+        return pcm, wall
+
+    res = {}
+    for tier, flags, kernels in (
+            ("exact", ["--exact"], ("exact_fir", "exact_fir_grouped")),
+            ("production", [], ("chain_fm", "chain_fm_grouped"))):
+        pcm, wall = run(tier, flags, kernels)
+        for i, k in enumerate(AIRSPY_BURSTS):
+            got = decode_25k(pcm[k], device)
+            require(got == [expected[i]], f"multifm-torch 232 channels "
+                    f"{tier} channel {k} decoded {got}, expected "
+                    f"{expected[i]}")
+        plain_pcm, plain_wall = run(f"{tier}_plain", flags, (), plain=True)
+        require(all(p.size > 0 and p.tobytes() == q.tobytes()
+                    for p, q in zip(pcm, plain_pcm)),
+                f"multifm-torch 232 channels {tier}: PCM differs from the "
+                f"plain-version run")
+        res[tier] = {"wall_s": wall, "plain_wall_s": plain_wall,
+                     "msps": AIRSPY_SAMPLES / wall / 1e6,
+                     "samples": AIRSPY_SAMPLES}
+        log(f"multifm-torch 232 channels {tier}: 8 of 8 bursts decode; "
+            f"{AIRSPY_SAMPLES} samples in {wall:.3f} s = "
+            f"{AIRSPY_SAMPLES / wall / 1e6:.2f} Msps; PCM of all "
+            f"{AIRSPY_CHANNELS} channels == the plain-version run "
+            f"({plain_wall:.3f} s)")
+    return res
+
+
+def wide_phase(device, totals: dict) -> dict:
+    """Phase 17: wide channel banks, K1 and K5 at BENCH_SUITE's block, then
+    multifm-torch at 232 channels."""
+    res = {"kernels": wide_kernels(device)}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["multifm"] = wide_multifm_runs(device, Path(tmp), totals)
+    return res
+
+
 def smoke(device: str) -> dict:
-    """Phases 2-16 on ``device``; returns the kernels' summary."""
+    """Phases 2-17 on ``device``; returns the kernels' summary."""
     import torch
 
     from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
@@ -2118,6 +2415,8 @@ def smoke(device: str) -> dict:
                          pipe.block_size, plan.carry_len)
     exact = exact_phases(pipe, iq, expected, device, totals)
     del iq
+    wide = wide_phase(device, totals)
+    wide_k = wide["kernels"]
 
     front = front_end(device, totals)
     k3_f32 = k3_times["pipeline 5/12"]
@@ -2126,6 +2425,7 @@ def smoke(device: str) -> dict:
         "run": run,
         "live": live,
         "exact": exact,
+        "wide": wide,
         "front": front["runs"],
         "k3": k3_times,
         "k4": front["k4"],
@@ -2144,6 +2444,14 @@ def smoke(device: str) -> dict:
              "max_abs_err": k3_err, **k3_q14},
             *front["kernels"],
             exact["kernel"],
+            {"name": "chain_fm_grouped", "route": "cuda",
+             "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
+             "replaces": "tsl_sdr_tpu/ops/pallas_chain.py:167",
+             "max_abs_err": wide_k["err"], **wide_k[256]["chain_fm"]},
+            {"name": "exact_fir_grouped", "route": "cuda",
+             "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
+             "replaces": "tsl_sdr_tpu/ops/packed_fir.py:286",
+             "max_abs_err": wide_k["err"], **wide_k[256]["exact_fir_raw"]},
         ],
         "launches": totals,
     }
@@ -2228,6 +2536,11 @@ def main() -> int:
     log(f"{card} | AIS capture walls s: {json.dumps(exact['ais'])}")
     for tag, r in exact["multifm"].items():
         log(f"{card} | multifm-torch {tag}: {json.dumps(r)}")
+    for tier, r in summary["wide"]["multifm"].items():
+        log(f"{card} | multifm-torch 232 channels {tier}: {json.dumps(r)}")
+    for nr_ch in WIDE_CHANNELS:
+        for name, r in summary["wide"]["kernels"][nr_ch].items():
+            log(f"{card} | {name} at {nr_ch} channels: {json.dumps(r)}")
     for kernel in ("k3", "k4"):
         for name, k in summary[kernel].items():
             log(f"{card} | {kernel.upper()} {name}: {json.dumps(k)}")

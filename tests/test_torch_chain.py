@@ -150,8 +150,11 @@ def test_ragged_last_tile_matches_xla():
 def test_tile_rows_fit_the_kernel(row, cr, hc):
     """Tiles of whole 16-row m-tiles whose staged rows (high and low byte
     planes, pitch ROW + 16) and f32 accumulators fit in 227 KB (3,200-value
-    rows: the decimation-50 pipeline)."""
-    tr = k1.tile_rows(row, cr, hc, u_len=(cr + 1) * row)
+    rows: the decimation-50 pipeline), in one block of all ``hc`` output
+    columns (here one output a row of ``hc`` channels)."""
+    tap_bytes = 2 * (cr + 1) * row // 32 * -(-2 * hc // 8) * 256
+    tr, cpb = k1.launch_shape(row, cr, hc, 1, lambda c: tap_bytes)
+    assert cpb == hc
     assert (tr + 1) % 16 == 0 and 15 <= tr <= 255
     x_bytes = 2 * (tr + 1 + cr) * (row + 16)
     assert x_bytes + 2 * (tr + 1) * hc * 4 <= 227 * 1024

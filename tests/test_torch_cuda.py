@@ -18,7 +18,9 @@ conversion and a power-of-two scale, or the integer Q.28 -> Q.14 rounding);
 the exact DC blocker EXACTLY equal (the same integer recurrence); K5
 EXACTLY equal in both epilogues (wrapping int32 sums, then the integer
 rounding or nothing), and the exact channelizer's PCM on the card equal to
-the CPU's byte for byte.
+the CPU's byte for byte; K1 and K5 on wide banks (grouped operands, channel
+blocks at 256 and 232 channels) EXACTLY equal, the FM stage's PCM and
+carry included.
 """
 
 import dataclasses
@@ -438,6 +440,90 @@ def test_exact_fir_kernel_matches_plain(cuda, bank, extra, out):
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     else:
         assert got.dtype == torch.int32 and torch.equal(got, ref)
+
+
+def _wide_bank(shape):
+    """BENCH_SUITE's channelizer shape (1 Msps, decimation 40, 128 taps) at
+    ``shape`` channels, or etc/multifm_airspy.json's settings at its 232
+    12.5 kHz channels."""
+    if shape == "airspy_232ch":
+        import json
+
+        cfg = json.loads((Path(__file__).resolve().parents[1] / "etc"
+                          / "multifm_airspy.json").read_text())
+        return (cfg["lpfTaps"], -1_450_000 + 12_500 * np.arange(232),
+                cfg["sampleRateHz"], cfg["decimationFactor"])
+    from tsl_sdr_tpu_torch.utils.filter_design import firdes_low_pass
+
+    fs = 1_000_000
+    offs = np.random.default_rng(0).integers(-fs // 3, fs // 3, size=shape)
+    return firdes_low_pass(1.0, fs, 12_500, 9_000)[:128], offs, fs, 40
+
+
+def _adversarial(taps):
+    """The same ChainTaps with every tap its layout may hold set to
+    +-32767 (random signs); grouped taps keep the layout's zeros, which
+    the grouped form leaves out."""
+    from tsl_sdr_tpu_torch.ops import packed_fir
+
+    plan = taps.plan
+    support = packed_fir.tap_support(plan)
+    rng = np.random.default_rng(17)
+    w = np.where(rng.random(support.shape) < 0.5, -32767, 32767)
+    if taps.grouped:
+        w = np.where(support, w, 0)
+    return k1.ChainTaps(packed_fir.with_taps_i16(plan, w.astype(np.int16)),
+                        taps.omega_c.cpu().numpy(), device=taps.w_hi.device,
+                        grouped=taps.grouped)
+
+
+@pytest.mark.parametrize("shape", [16, 64, 256, "airspy_232ch"])
+@pytest.mark.parametrize("case", ["ragged", "adversarial"])
+def test_wide_bank_kernels_match_plain(cuda, shape, case):
+    """K1 and K5 (both epilogues) with grouped operands, in channel blocks
+    at 256 and 232 channels, EXACTLY equal to their plain versions on a
+    block with a ragged last tile, and on all -32768 against taps of
+    +-32767; two halves of a block equal the whole."""
+    from tsl_sdr_tpu_torch.ops import exact_fir as k5
+
+    ch = MultifmChain(*_wide_bank(shape), device=cuda)
+    taps, plan = ch.taps, ch.packed_plan
+    assert taps.grouped
+    assert (taps.chans_per_block < plan.nr_channels) == (shape in (
+        256, "airspy_232ch"))
+    rows = 3 * taps.tile_rows + 5
+    n = plan.carry_vals + rows * plan.row
+    if case == "adversarial":
+        taps = _adversarial(taps)
+        vals = np.full(n, -32768, np.int16)
+    else:
+        vals = np.random.default_rng(4).integers(-32768, 32768, size=n)
+    vals = torch.from_numpy(vals.astype(np.int16)).to(cuda)
+    carry, block = vals[:plan.carry_vals], vals[plan.carry_vals:]
+    prev = torch.from_numpy(np.random.default_rng(7).normal(
+        scale=1e5, size=(2, plan.nr_channels)).astype(np.float32)).to(cuda)
+    before = (k1.chain_fm.grouped_launches, k5.exact_fir.grouped_launches)
+    got, gprev = k1.chain_fm(taps, carry, prev, block)
+    ref, rprev = k1.chain_fm_plain(taps, carry, prev, block)
+    assert torch.equal(got, ref) and torch.equal(gprev, rprev)
+    for out in ("q14", "raw"):
+        g5 = k5.exact_fir(taps, carry, block, out)
+        r5 = k5.exact_fir_plain(taps, carry, block, out)
+        if out == "q14":
+            g5, r5 = torch.stack(g5), torch.stack(r5)
+        assert torch.equal(g5, r5), out
+    torch.cuda.synchronize()
+    assert (k1.chain_fm.grouped_launches, k5.exact_fir.grouped_launches) \
+        == (before[0] + 1, before[1] + 2)
+    half = (rows // 2) * plan.row
+    carry2 = block[half - plan.carry_vals:half].contiguous()
+    a, p_a = k1.chain_fm(taps, carry, prev, block[:half])
+    b, p_b = k1.chain_fm(taps, carry2, p_a, block[half:])
+    assert torch.equal(torch.cat([a, b]), got) and torch.equal(p_b, gprev)
+    whole = k5.exact_fir(taps, carry, block, "raw")
+    parts = [k5.exact_fir(taps, carry, block[:half], "raw"),
+             k5.exact_fir(taps, carry2, block[half:], "raw")]
+    assert torch.equal(torch.cat(parts), whole)
 
 
 def test_exact_chain_on_the_card_equals_cpu(cuda):

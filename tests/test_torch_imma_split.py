@@ -139,9 +139,16 @@ def test_chain_taps_planes_recombine_to_the_taps():
     ch = MultifmChain(pager.lpf_taps(), pager.OFFSETS_HZ, pager.FS,
                       pager.DECIMATION, device="cpu")
     plan = ch.packed_plan
-    got = imma_split.unfragment(ch.taps.w_hi.numpy(), ch.taps.w_lo.numpy(),
-                                plan.win, 2 * plan.halfcols)
+    k_tiles, n_tiles = -(-plan.win // 32), -(-2 * plan.halfcols // 8)
+    # the pager bank is chunked and one channel block: every tile keeps
+    # all its k-steps, in the tap matrix's own column order
+    assert not ch.taps.grouped and ch.taps.chans_per_block == 8
+    ktab = ch.taps.ktab.numpy()
+    assert (ktab[:, :2] == [0, k_tiles]).all()
+    hi, lo = imma_split.expand_groups(ch.taps.w_hi.numpy(),
+                                      ch.taps.w_lo.numpy(), ktab[:, :2],
+                                      ktab[:, 2], k_tiles, n_tiles, 4)
+    got = imma_split.unfragment(hi, lo, plan.win, 2 * plan.halfcols)
     np.testing.assert_array_equal(
         got, np.concatenate(plan.w_chunks_i16)[:plan.win])
-    assert ch.taps.w_hi.shape[:2] == (-(-plan.win // 32),
-                                      -(-2 * plan.halfcols // 8))
+    assert ch.taps.w_hi.shape[0] == k_tiles * n_tiles

@@ -12,11 +12,14 @@ Bars:
 - the startup mute, ``signalDebugFile`` (the exact tier's IQ byte-equal,
   the production tier's within 1 LSB: its NCO's cos/sin may differ from
   XLA's by an ulp, which can flip a truncation), ``--iq-dump`` (byte-equal),
-  the hardware gate (exit 2) and the mock RTL-SDR device.
+  the hardware gate (exit 2) and the mock RTL-SDR device;
+- the same two bars on a 64-channel bank, where both packages take the
+  phase-grouped form of the FIR.
 """
 
 import json
 import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -161,6 +164,72 @@ def test_signal_debug_file_and_iq_dump(tmp_path, capture, tier):
         assert np.abs(port["dbg"].astype(np.int32) - tpu["dbg"]).max() <= 1
         assert _lsb_diff(port["pcm"], tpu["pcm"]).max() <= 1
     assert _decoded(port["pcm"]) == [MSGS[1]]
+
+
+WIDE_ETC = Path(__file__).resolve().parents[1] / "etc"
+WIDE_OFFSETS = -400_000 + 12_500 * np.arange(64)
+WIDE_MSGS = {3: (777_003, "WIDE BANK CH3"), 30: (777_030, "WIDE BANK CH30"),
+             57: (777_057, "WIDE BANK CH57")}
+
+
+def _decoded_25k(pcm):
+    """POCSAG messages of 25 kHz channel PCM, resampled 192/125 to the
+    decoder's 38,400 Hz on the exact tier."""
+    from tsl_sdr_tpu_torch.models.resampler import ResamplerChain
+    from tsl_sdr_tpu_torch.utils.config import load_lpf_coeffs
+
+    rs = ResamplerChain(load_lpf_coeffs(
+        WIDE_ETC / "pocsag_38400_from_25k.json"), 192, 125, exact=True,
+        device="cpu")
+    return _decoded(rs.process_array(pcm))
+
+
+def test_wide_bank_64_channels(tmp_path):
+    """etc/multifm_rtlsdr_8ch.json's rate, decimation and 365 taps widened
+    to 64 channels, 12.5 kHz apart: the grouped form on both tiers. The
+    exact tier's PCM byte-equal to multifm-tpu's on every channel, the
+    production tier's within 1 LSB; the three bursts decode."""
+    base = json.loads((WIDE_ETC / "multifm_rtlsdr_8ch.json").read_text())
+    fs = base["sampleRateHz"]
+    sigs = {}
+    for k, (cap, text) in WIDE_MSGS.items():
+        bb = pocsag_gen.generate(
+            [pocsag_gen.PocsagBurst(capcode=cap, function=1, kind="alpha",
+                                    content=text)],
+            baud=1200, amplitude=4096, tail_bits=256)
+        sigs[k] = fm_mod(bb, 38_400, WIDE_OFFSETS[k], fs, amp=4000)
+    iq = np.random.default_rng(4).normal(
+        scale=60, size=(max(map(len, sigs.values())) + 150_000, 2))
+    for i, x in enumerate(sigs.values()):
+        iq[30_000 * i:30_000 * i + len(x)] += x
+    cap_path = tmp_path / "wide.cs16"
+    np.clip(np.round(iq), -32768, 32767).astype(np.int16).tofile(cap_path)
+    out = {}
+    for name, main in (("tpu", jax_cli.main), ("torch", torch_cli.main)):
+        cfg = dict(base, device={"type": "file", "filename": str(cap_path),
+                                 "fileFormat": "cs16"})
+        for tier, flags in (("exact", ["--exact"]),
+                            ("fast", ["--backend", "xla"])):
+            cfg["channels"] = [
+                {"outFifo": str(tmp_path / f"{name}_{tier}_ch{k}.pcm"),
+                 "chanCenterFreq": base["centerFreqHz"] + int(off)}
+                for k, off in enumerate(WIDE_OFFSETS)]
+            path = tmp_path / f"{name}_{tier}.json"
+            path.write_text(json.dumps(cfg))
+            argv = [str(path), "--runtime", "python", *flags]
+            if name == "torch":
+                argv += ["--device", "cpu"]
+            assert main(argv) == 0
+            out[name, tier] = [
+                np.fromfile(tmp_path / f"{name}_{tier}_ch{k}.pcm", np.int16)
+                for k in range(len(WIDE_OFFSETS))]
+    for k in range(len(WIDE_OFFSETS)):
+        a, b = out["tpu", "exact"][k], out["torch", "exact"][k]
+        assert b.size > 0 and a.tobytes() == b.tobytes(), k
+        a, b = out["tpu", "fast"][k], out["torch", "fast"][k]
+        assert a.shape == b.shape and _lsb_diff(a, b).max() <= 1, k
+    for k, msg in WIDE_MSGS.items():
+        assert _decoded_25k(out["torch", "exact"][k]) == [msg]
 
 
 def test_hardware_gate_and_config_errors(tmp_path, capsys, monkeypatch):

@@ -33,9 +33,10 @@ _L = ctypes.c_longlong
 # C signatures: every pointer (and the stream) as c_void_p — ctypes would
 # otherwise pass a Python int as a 32-bit int and cut the pointer
 SIGNATURES = {
-    "tsl_chain_fm": [_P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _I, _P],
-    "tsl_exact_fir": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "tsl_chain_fm": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "tsl_exact_fir": [_P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tsl_row_resample": [_P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _L, _I, _I, _P],
     "tsl_frame_resample": [_P, _P, _P, _P, _P, _P,

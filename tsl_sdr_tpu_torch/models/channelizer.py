@@ -131,8 +131,12 @@ class MultifmChain:
         w = self.packed_plan.omega_d.astype(np.float64)
         self._omega_reduced = (
             w - 2 * np.pi * np.round(w / (2 * np.pi))).astype(np.float32)
+        # wide banks take the phase-grouped form of the product (as the
+        # JAX package chooses: grouped_fir_worthwhile); K1 and K5 then run
+        # each tap tile's non-zero k-steps only
         self.taps = ChainTaps(self.packed_plan, self._omega_reduced,
                               device=self.device)
+        self.grouped_plan = self.taps.grouped_plan
         self._omega_i32 = torch.from_numpy(packed_fir.omega_turns_i32(
             self.packed_plan.omega_d)).to(self.device)
 

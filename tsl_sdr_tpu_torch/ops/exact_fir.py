@@ -13,9 +13,11 @@ On a CUDA tensor it launches ``csrc/chain.cu`` in its K5 modes: K1's
 staging and int8 tensor-core main loop with integer epilogues in place of
 the FM stage, replacing the bit-exact tier's device stage
 ``tsl_sdr_tpu/ops/packed_fir.py`` ``packed_fir_step_exact`` (an XLA int16 x
-int16 -> int32 ``jnp.dot``; torch's CUDA matmul takes no int16 operands).
-On a CPU tensor it runs :func:`exact_fir_plain`. The operands are K1's:
-:class:`tsl_sdr_tpu_torch.ops.chain.ChainTaps`.
+int16 -> int32 ``jnp.dot``, or ``_grouped_matmul`` for wide banks; torch's
+CUDA matmul takes no int16 operands). On a CPU tensor it runs
+:func:`exact_fir_plain`. The operands are K1's:
+:class:`tsl_sdr_tpu_torch.ops.chain.ChainTaps`, in either form of the
+product.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from tsl_sdr_tpu_torch.kernels import build
-from tsl_sdr_tpu_torch.ops import imma_split, packed_fir, q14
+from tsl_sdr_tpu_torch.ops import imma_split, q14
 from tsl_sdr_tpu_torch.ops.chain import ChainTaps, _check
 
 OUT_MODES = {"q14": 1, "raw": 2}
@@ -67,22 +69,26 @@ def exact_fir(taps: ChainTaps, carry_vals: torch.Tensor,
     stream = torch.cuda.current_stream(block.device).cuda_stream
     err = lib.tsl_exact_fir(
         carry_vals.data_ptr(), block.data_ptr(), taps.w_hi.data_ptr(),
-        taps.w_lo.data_ptr(), res.data_ptr(), rows, plan.row, plan.cr_rows,
-        plan.win, hc, taps.tile_rows, OUT_MODES[out], stream)
+        taps.w_lo.data_ptr(), taps.ktab.data_ptr(), res.data_ptr(), rows,
+        plan.row, plan.cr_rows, plan.win, plan.nr_channels, plan.opr,
+        taps.chans_per_block, taps.tile_rows, taps.tap_block_bytes,
+        OUT_MODES[out], stream)
     build.check(err, "tsl_exact_fir")
     exact_fir.launches += 1
+    exact_fir.grouped_launches += taps.grouped
     return (res[0], res[1]) if out == "q14" else res
 
 
 exact_fir.launches = 0
+exact_fir.grouped_launches = 0   # launches with grouped operands
 
 
 def exact_fir_plain(taps: ChainTaps, carry_vals: torch.Tensor,
                     block: torch.Tensor, out: str = "q14"):
-    """Plain torch version of :func:`exact_fir` (float64 chunk products,
-    wrapped to int32: :func:`~tsl_sdr_tpu_torch.ops.packed_fir.
-    packed_fir_step_exact`), on any device."""
-    p = packed_fir.packed_fir_sums(taps.plan, carry_vals, block, taps.w_f64)
+    """Plain torch version of :func:`exact_fir` (float64 products in the
+    taps' form, wrapped to int32, then the Q.14 rounding), on any
+    device."""
+    p = taps.fir_sums(carry_vals, block)
     if out == "raw":
         return p
     half = taps.plan.halfcols

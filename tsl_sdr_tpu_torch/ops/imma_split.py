@@ -21,7 +21,11 @@ laid out for the B operand of ``m16n8k32`` (:func:`fragment_planes`): for
 a ``[K, N]`` tap matrix, 32-deep by 8-wide tile ``(kt, nt)`` is 32 lanes
 of 8 bytes, lane ``4*g + t`` holding rows ``32*kt + 4*t + (0..3)`` and
 ``32*kt + 16 + 4*t + (0..3)`` of column ``8*nt + g``. A warp then reads
-each tile as one coalesced 256-byte load.
+each tile as one coalesced 256-byte load. Where each column tile needs
+only some of the k-steps (the phase-grouped FIR), :func:`compact_groups`
+keeps just those, in groups of the tiles one warp multiplies together:
+a group's tiles side by side at each of its steps, so the warp reads them
+from one address a step.
 """
 
 from __future__ import annotations
@@ -72,6 +76,71 @@ def unfragment(hi: np.ndarray, lo: np.ndarray, k: int, n: int) -> np.ndarray:
                                                        nt * N_TILE))
     full = w[0].view(np.int8).astype(np.int32) * 256 + w[1].astype(np.int32)
     return full[:k, :n].astype(np.int16)
+
+
+def group_spans(ranges: np.ndarray, tiles_per_block: int,
+                group: int) -> np.ndarray:
+    """int64 ``[blocks * groups a block, 2]``: the k-steps ``[first, end)``
+    of each group of ``group`` consecutive column tiles, the union of its
+    tiles' ``ranges`` (``[0, 0)`` where all are empty). The tiles come in
+    blocks of ``tiles_per_block``; a block's last group may be short."""
+    ranges = np.asarray(ranges, np.int64).reshape(-1, tiles_per_block, 2)
+    pad = -tiles_per_block % group
+    ranges = np.concatenate(
+        [ranges, np.zeros((len(ranges), pad, 2), np.int64)], axis=1)
+    r = ranges.reshape(-1, group, 2)
+    live = r[..., 1] > r[..., 0]
+    big = np.iinfo(np.int64).max
+    first = np.where(live, r[..., 0], big).min(axis=1)
+    end = np.where(live, r[..., 1], 0).max(axis=1)
+    return np.where(live.any(axis=1)[:, None],
+                    np.stack([first, end], axis=1), 0)
+
+
+def compact_groups(hi: np.ndarray, lo: np.ndarray, ranges: np.ndarray,
+                   tiles_per_block: int, group: int):
+    """Keep of full planes ``[KT, NT, 32, 8]`` only what each group of
+    :func:`group_spans` needs: its steps, one after another, each step
+    its ``group`` tiles side by side (a short group padded with zero
+    tiles). Returns (high, low) ``[L, 32, 8]``, ``base [NT]``: tile ``t``'s
+    fragment of step ``ks`` is at ``base[t] + group * ks + t % group`` (``t``
+    counted inside its block), and ``end [NT]``: where the fragments of
+    ``t``'s block end."""
+    spans = group_spans(ranges, tiles_per_block, group)
+    nt = len(ranges)
+    gpb = -(-tiles_per_block // group)
+    steps = spans[:, 1] - spans[:, 0]
+    start = np.concatenate([[0], np.cumsum(steps * group)[:-1]])
+    t = np.arange(nt)
+    g = t // tiles_per_block * gpb + t % tiles_per_block // group
+    base = start[g] - group * spans[g, 0]
+    end = (start + steps * group).reshape(-1, gpb)[:, -1]
+    out = []
+    for plane in (hi, lo):
+        frags = np.zeros((int((steps * group).sum()), 32, 8), np.uint8)
+        for tt in range(nt):
+            ks = np.arange(*spans[g[tt]])
+            frags[base[tt] + group * ks + tt % tiles_per_block % group] = \
+                plane[ks, tt]
+        out.append(frags)
+    return out[0], out[1], base, end[t // tiles_per_block]
+
+
+def expand_groups(hi: np.ndarray, lo: np.ndarray, ranges: np.ndarray,
+                  base: np.ndarray, k_tiles: int, tiles_per_block: int,
+                  group: int):
+    """Each tile's own k-steps of :func:`compact_groups`' planes, back in
+    full ``[k_tiles, NT, 32, 8]`` planes (zeros outside the tile's
+    range)."""
+    full = []
+    for plane in (hi, lo):
+        out = np.zeros((k_tiles, len(ranges), 32, 8), np.uint8)
+        for t, (a, b) in enumerate(np.asarray(ranges)):
+            ks = np.arange(a, b)
+            out[ks, t] = plane[base[t] + group * ks
+                               + t % tiles_per_block % group]
+        full.append(out)
+    return full[0], full[1]
 
 
 def split_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Lane-packed multi-channel decimating FIR: numpy plan + plain torch step.
 
 Port of ``tsl_sdr_tpu/ops/packed_fir.py:62-193`` (plan builder, copied as
-numpy because the JAX module imports jax at load), ``:321-403`` (the
-streaming step), ``:406-464`` (its bit-exact tier, the plain version of
-kernel K5, :mod:`tsl_sdr_tpu_torch.ops.exact_fir`) and ``:467-487`` (the
-integer NCO of the fast tier's debug tap). The interleaved int16 stream is cut into rows of
+numpy because the JAX module imports jax at load), ``:198-318`` (the
+phase-grouped windowed form: its plan, its choice and its product),
+``:321-403`` (the streaming step), ``:406-464`` (its bit-exact tier, the
+plain version of kernel K5, :mod:`tsl_sdr_tpu_torch.ops.exact_fir`) and
+``:467-487`` (the integer NCO of the fast tier's debug tap). The interleaved int16 stream is cut into rows of
 ``ROW = lcm(2*D, 128)`` values; each row yields ``OPR = ROW/(2*D)``
 decimated outputs per channel, and output row ``r`` is
 
@@ -141,6 +142,130 @@ def tap_matrix_i16(plan: PackedFirPlan) -> np.ndarray:
     row ``u`` multiplies stream value ``r*ROW + u`` of output row ``r``
     (rows past ``win`` are zero in every chunk and are dropped)."""
     return np.ascontiguousarray(np.concatenate(plan.w_chunks_i16)[:plan.win])
+
+
+def with_taps_i16(plan: PackedFirPlan, w: np.ndarray) -> PackedFirPlan:
+    """``plan`` with its int16 chunks replaced by the ``[win, 2*halfcols]``
+    matrix ``w`` (the inverse of :func:`tap_matrix_i16`): other taps of
+    the same shape, e.g. full-scale ones for an adversarial check."""
+    w = np.asarray(w, np.int16)
+    padded = np.zeros(((plan.cr_rows + 1) * plan.row, w.shape[1]), np.int16)
+    padded[:plan.win] = w
+    return plan._replace(w_chunks_i16=tuple(
+        padded[i * plan.row:(i + 1) * plan.row]
+        for i in range(plan.cr_rows + 1)))
+
+
+def tap_support(plan: PackedFirPlan) -> np.ndarray:
+    """bool ``[win, 2*halfcols]``: where the plan's layout may hold a tap.
+    Phase ``j``'s columns (both halves, every channel) read the ``2T``
+    values from ``2*D*j`` on; the rest is zeros of the layout."""
+    t2, step = 2 * plan.nr_taps, 2 * plan.decimation
+    u = np.arange(plan.win)[:, None]
+    j = np.arange(plan.opr)[None, :]
+    phase = (u >= step * j) & (u < step * j + t2)            # [win, opr]
+    return np.repeat(np.tile(phase, 2), plan.nr_channels, axis=1)
+
+
+class GroupedFirPlan(NamedTuple):
+    """Phase-grouped windowed form of a :class:`PackedFirPlan` (copied from
+    ``tsl_sdr_tpu/ops/packed_fir.py:198-271``): the ``opr`` phases in
+    ``n_groups`` groups of ``g`` consecutive phases (``g*2C >= 128``, or the
+    whole row); group ``G`` is one dense product
+
+        xw[:, 2*D*g*G : 2*D*g*G + win_g] @ Wg[G]      (win_g = (g-1)*2D + 2T)
+
+    over the windowed row view ``xw[r] = rows[r] ++ rows[r+1][:win-ROW]``,
+    which skips the structural zeros of the chunked form."""
+
+    wg_f32: np.ndarray   # [n_groups, win_g, 2*g*C] float32
+    wg_i16: np.ndarray   # same, int16 Q.14
+    g: int               # phases per group
+    n_groups: int        # = opr // g
+    win_g: int           # window values per group
+    spill: int           # = win - row (windowed-view overhang into next row)
+
+
+def _group_size(opr: int, nr_channels: int) -> int:
+    """Smallest power-of-two phase group with >= 128 output columns (or
+    the whole row); it divides ``opr``, a power of two."""
+    g = 1
+    while g < opr and g * 2 * nr_channels < 128:
+        g *= 2
+    return g
+
+
+def make_grouped_from_plan(plan: PackedFirPlan) -> GroupedFirPlan:
+    """Regroup a packed plan's taps into the phase-grouped windowed form."""
+    row, opr, c = plan.row, plan.opr, plan.nr_channels
+    d, t = plan.decimation, plan.nr_taps
+    g = _group_size(opr, c)
+    n_groups = opr // g
+    win_g = (g - 1) * 2 * d + 2 * t
+    w_full = np.concatenate([np.asarray(w) for w in plan.w_chunks], axis=0)
+    w_full = w_full[:plan.win].reshape(plan.win, 2, opr, c)
+    wq_full = np.concatenate([np.asarray(w) for w in plan.w_chunks_i16],
+                             axis=0)[:plan.win].reshape(plan.win, 2, opr, c)
+    wg = np.zeros((n_groups, win_g, 2, g, c), dtype=np.float32)
+    wgq = np.zeros((n_groups, win_g, 2, g, c), dtype=np.int16)
+    for grp in range(n_groups):
+        off = 2 * d * g * grp
+        for jj in range(g):
+            j = grp * g + jj
+            # phase j's taps live at absolute rows [2*D*j, 2*D*j + 2T)
+            a0 = 2 * d * j
+            wg[grp, a0 - off:a0 - off + 2 * t, :, jj] = \
+                w_full[a0:a0 + 2 * t, :, j]
+            wgq[grp, a0 - off:a0 - off + 2 * t, :, jj] = \
+                wq_full[a0:a0 + 2 * t, :, j]
+    return GroupedFirPlan(
+        wg_f32=wg.reshape(n_groups, win_g, 2 * g * c),
+        wg_i16=wgq.reshape(n_groups, win_g, 2 * g * c),
+        g=g, n_groups=n_groups, win_g=win_g, spill=plan.win - row)
+
+
+def grouped_fir_worthwhile(plan: PackedFirPlan, threshold=1.3) -> bool:
+    """True when the grouped form cuts the product's multiply-adds by at
+    least ``threshold`` (the JAX package's choice, made on shapes alone)."""
+    chunk_macs = sum(plan.chunk_nnz[i] if plan.chunk_nnz else plan.row
+                     for i in range(plan.cr_rows + 1))
+    g = _group_size(plan.opr, plan.nr_channels)
+    n_groups = plan.opr // g
+    win_g = (g - 1) * 2 * plan.decimation + 2 * plan.nr_taps
+    grouped_macs = n_groups * win_g * (g / plan.opr)
+    return chunk_macs / max(grouped_macs, 1) >= threshold
+
+
+def grouped_fir_sums(plan: PackedFirPlan, gplan: GroupedFirPlan,
+                     carry_vals: torch.Tensor, block: torch.Tensor,
+                     wg_f64: torch.Tensor) -> torch.Tensor:
+    """The grouped form of :func:`packed_fir_sums` (the JAX package's
+    ``_grouped_matmul``, ``tsl_sdr_tpu/ops/packed_fir.py:286-318``): the
+    same wrapped int32 ``[rows, 2*halfcols]`` in the same ``[re/im, j, c]``
+    column layout, from one float64 windowed product a phase group
+    (``wg_f64`` = ``gplan.wg_i16`` as float64, exact products)."""
+    row, cr = plan.row, plan.cr_rows
+    if block.numel() % row:
+        raise ValueError(f"block of {block.numel()} values is not a "
+                         f"multiple of the {row}-value row")
+    rows = torch.cat([carry_vals, block]).view(-1, row).to(torch.float64)
+    r_valid = rows.shape[0] - cr
+    # xw[r] = rows[r] ++ rows[r+1] ++ ...: the spill may span several rows
+    parts = [rows[:r_valid]]
+    rem, k = gplan.spill, 1
+    while rem > 0:
+        take = min(rem, row)
+        parts.append(rows[k:k + r_valid, :take])
+        rem -= take
+        k += 1
+    xw = torch.cat(parts, dim=1)
+    step = 2 * plan.decimation * gplan.g
+    xg = torch.stack([xw[:, step * grp:step * grp + gplan.win_g]
+                      for grp in range(gplan.n_groups)])
+    q = torch.bmm(xg, wg_f64)                   # [n_groups, r, 2*g*C]
+    # [G, r, 2, g*C] -> [r, 2, G, g*C] -> [r, 2*opr*C] (j = G*g + jj)
+    q = q.reshape(gplan.n_groups, r_valid, 2, -1).permute(1, 2, 0, 3)
+    return q.reshape(r_valid, -1).to(torch.int64).to(torch.int32)
 
 
 def init_packed_carry(plan: PackedFirPlan, prefix=None, *,

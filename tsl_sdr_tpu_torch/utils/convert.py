@@ -29,10 +29,11 @@ from tsl_sdr_tpu_torch.models.channelizer import (ExactPackedState,
                                                    MultifmFastState)
 from tsl_sdr_tpu_torch.models.resampler import ResamplerChainState
 from tsl_sdr_tpu_torch.ops.dc_blocker import DcBlockerState
-from tsl_sdr_tpu_torch.ops.packed_fir import PackedFirPlan
+from tsl_sdr_tpu_torch.ops.packed_fir import GroupedFirPlan, PackedFirPlan
 from tsl_sdr_tpu_torch.ops.polyphase import ResamplerPlan
 
-_PLANS = {"PackedFirPlan": PackedFirPlan, "ResamplerPlan": ResamplerPlan}
+_PLANS = {"PackedFirPlan": PackedFirPlan, "GroupedFirPlan": GroupedFirPlan,
+          "ResamplerPlan": ResamplerPlan}
 
 
 def _np_field(v):
@@ -44,7 +45,8 @@ def _np_field(v):
 
 
 def plan_from_jax(plan):
-    """A JAX ``PackedFirPlan`` or ``ResamplerPlan`` -> the port's."""
+    """A JAX ``PackedFirPlan``, ``GroupedFirPlan`` or ``ResamplerPlan`` ->
+    the port's."""
     cls = _PLANS[type(plan).__name__]
     return cls(**{f: _np_field(getattr(plan, f)) for f in cls._fields})
 
