@@ -84,9 +84,9 @@ wide channel banks (BENCH_SUITE's 64 and 256 channels, the Airspy band's
    capture file, each message's delay from the delivery of its burst's
    last sample, under (inflight_depth + 2) blocks. Every run must decode
    phase 4's messages on native decoders;
-13. K5 (the bit-exact tier's packed FIR, ``csrc/chain.cu``'s integer
-   epilogues on K1's main loop) against its plain version, both epilogues
-   (Q.14 planes, raw int32 sums), at the pager block and at
+13. K5 (the bit-exact tier's packed FIR, ``csrc/bank.cu``: a persistent
+   grid with resident taps, K5's own tiles) against its plain version,
+   both epilogues (Q.14 planes, raw int32 sums), at the pager block and at
    ``multifm_rtlsdr_8ch``'s 262,144-sample block, each also with a ragged
    last tile, on adversarial input, and as two halves against the whole:
    exactly equal; its times beside its plain version's, one float64
@@ -106,18 +106,22 @@ wide channel banks (BENCH_SUITE's 64 and 256 channels, the Airspy band's
    plain-version run byte for byte; walls and Msps per run;
 17. wide channel banks: (a) K1 and K5 at BENCH_SUITE's channelizer block
    (16,711,680 samples at 1 Msps, decimation 40, 128 taps) at 64 and 256
-   channels (the latter in channel blocks), with the chain's grouped
-   operands (each tap tile's non-zero k-steps only) and with full-window
-   ones (``grouped=False``): both kernels, both K5 epilogues, against
-   their plain versions on the block, a ragged block, adversarial input
-   and two halves, exactly equal; device times of each form in turns,
+   channels (K1 on its bank body in sub-blocks of 16 channels, K5 in
+   sub-blocks of 32 tap tiles), with the chain's grouped operands (each
+   tap tile's non-zero k-steps only) and with full-window ones
+   (``grouped=False``): both kernels, both K5 epilogues, against their
+   plain versions on the block, a ragged block, adversarial input and two
+   halves, exactly equal; device times of each form in turns,
    beside the plain version, the bound and, for K5's raw sums, one float64
    ``torch.matmul`` of the same product; (b) ``multifm-torch`` at
    ``etc/multifm_airspy.json``'s rate, decimation and taps widened to 232
    channels (12.5 kHz apart within +-1.45 MHz) on a 3 s cs16 capture with
    a POCSAG burst on 8 of them: both tiers, grouped launches counted,
    every burst decoded, each tier's PCM equal to the plain-version run
-   byte for byte on all 232 channels.
+   byte for byte on all 232 channels; (c) the same at BENCH_SUITE's
+   channelizer settings (1 Msps, decimation 40, 128 taps) on 64 channels
+   12.5 kHz apart (a 2 s capture, 7 bursts), where K1 runs its bank body:
+   the production run must launch it (``chain_fm.bank_launches``).
 
 Each path of phases 4, 8, 9, 10, 14, 15, 16 and 17 and each run of phase
 12 runs with the
@@ -249,6 +253,7 @@ def launch_counts() -> dict:
 
     return {"chain_fm": k1.chain_fm.launches,
             "chain_fm_grouped": k1.chain_fm.grouped_launches,
+            "chain_fm_bank": k1.chain_fm.bank_launches,
             "exact_fir": k5.exact_fir.launches,
             "exact_fir_grouped": k5.exact_fir.grouped_launches,
             "row_resample": k3.row_resample.launches,
@@ -266,6 +271,7 @@ def zero_launch_counts() -> None:
 
     k1.chain_fm.launches = 0
     k1.chain_fm.grouped_launches = 0
+    k1.chain_fm.bank_launches = 0
     k5.exact_fir.launches = 0
     k5.exact_fir.grouped_launches = 0
     k3.row_resample.launches = 0
@@ -1565,7 +1571,9 @@ def check_exact_fir(shapes: dict, device):
     for name, (chain, vals) in shapes.items():
         taps = chain.taps
         plan = taps.plan
-        tr = taps.tile_rows
+        xt = taps.exact
+        tr = xt.tile_rows
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
         rows = (vals.size - plan.carry_vals) // plan.row
         cases = {
             name: (taps, vals),
@@ -1576,8 +1584,11 @@ def check_exact_fir(shapes: dict, device):
                         np.int16)),
         }
         log(f"K5 shapes ({name}): ROW={plan.row} cr={plan.cr_rows} "
-            f"U={plan.win} halfcols={plan.halfcols} tile_rows={tr}; {rows} "
-            f"rows ({rows % tr} in the last tile)")
+            f"U={plan.win} halfcols={plan.halfcols}; K5's tile_rows={tr} "
+            f"(this block: {xt.launch_rows(rows, n_sm)}), "
+            f"{xt.n_sub} sub-blocks of {xt.tiles_per_block} tap tiles, "
+            f"{xt.stages} row buffers, taps "
+            f"{'resident' if xt.staged else 'from L2'}; {rows} rows")
         for case, (tp, v) in cases.items():
             v = torch.from_numpy(v.copy()).to(device)
             carry, block = v[:plan.carry_vals], v[plan.carry_vals:]
@@ -1623,7 +1634,8 @@ def time_exact_fir(chain, vals, device) -> dict:
                      library=k5_library(taps, carry, block))
     rows = block.numel() // plan.row
     t["bound_ms"], t["bound_by"] = bound(
-        fir_macs(plan, rows), nbytes(carry, block, taps.w_hi, taps.w_lo)
+        fir_macs(plan, rows),
+        nbytes(carry, block, taps.exact.w_hi, taps.exact.w_lo)
         + 2 * rows * plan.halfcols * 2)
     log(f"K5 pager block ({rows} rows): kernel {t['ms']:.4f} ms (call "
         f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f} ms, f64 "
@@ -2064,7 +2076,7 @@ def exact_phases(pipe, iq, expected, device, totals: dict) -> dict:
         res["ais"] = ais_runs(device, tmp, totals)
         res["multifm"] = multifm_runs(device, tmp, totals)
     res["kernel"] = {"name": "exact_fir", "route": "cuda",
-                     "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
+                     "source": "tsl_sdr_tpu_torch/csrc/bank.cu",
                      "replaces": "tsl_sdr_tpu/ops/packed_fir.py:406",
                      "max_abs_err": k5_err, **k5_t}
     return res
@@ -2103,7 +2115,7 @@ def check_wide(forms: dict, carry, block, prev, where: str) -> int:
     worst = 0
     for form, taps in forms.items():
         plan = taps.plan
-        tr = taps.tile_rows
+        tr = max(taps.tile_rows, taps.exact.tile_rows)
         adv = adversarial_chain_taps(taps)
         adv_vals = torch.full((plan.carry_vals + (3 * tr + 5) * plan.row,),
                               -32768, dtype=torch.int16, device=block.device)
@@ -2124,8 +2136,10 @@ def check_wide(forms: dict, carry, block, prev, where: str) -> int:
                     g5, r5 = torch.stack(g5), torch.stack(r5)
                 errs.append(max_err(g5, r5))
             del got, ref, g5, r5
-            log(f"K1/K5 vs plain, {where} {form} ({tp.tile_rows}-row tiles, "
-                f"{tp.chans_per_block} channels a block), {case}: max|diff| "
+            log(f"K1/K5 vs plain, {where} {form} (K1 {tp.body} body, "
+                f"{tp.tile_rows}-row tiles, {tp.chans_per_block} channels a "
+                f"block; K5 {tp.exact.tile_rows}-row tiles), {case}: "
+                f"max|diff| "
                 f"K1 {errs[0]:g}, carry {errs[1]:g}, K5 q14 {errs[2]:g}, "
                 f"raw {errs[3]:g}")
             require(max(errs) == 0, f"{where} {form} {case}: {errs}")
@@ -2161,6 +2175,7 @@ def time_wide(forms: dict, carry, block, prev) -> dict:
     plan = g.plan
     rows = block.numel() // plan.row
     io = nbytes(carry, block, g.w_hi, g.w_lo, g.ktab)
+    io5 = nbytes(carry, block, g.exact.w_hi, g.exact.w_lo, g.exact.ktab)
     macs = fir_macs(plan, rows)
     res = {}
     k1_t = kernel_times(lambda: k1.chain_fm_plain(g, carry, prev, block),
@@ -2172,7 +2187,7 @@ def time_wide(forms: dict, carry, block, prev) -> dict:
                         lambda: k5.exact_fir(g, carry, block, "raw"), 3, 20,
                         library=k5_library(g, carry, block))
     k5_t["bound_ms"], k5_t["bound_by"] = bound(
-        macs, io + 4 * rows * 2 * plan.halfcols)
+        macs, io5 + 4 * rows * 2 * plan.halfcols)
     res["chain_fm"], res["exact_fir_raw"] = k1_t, k5_t
     pairs = {
         "chain_fm": lambda t: k1.chain_fm(t, carry, prev, block),
@@ -2184,7 +2199,7 @@ def time_wide(forms: dict, carry, block, prev) -> dict:
                               device_ms)
         res.setdefault(name, {}).update(grouped_ms=g_ms, full_ms=f_ms)
     res["exact_fir_q14"]["bound_ms"] = bound(
-        macs, io + 2 * rows * 2 * plan.halfcols)[0]
+        macs, io5 + 2 * rows * 2 * plan.halfcols)[0]
     return res
 
 
@@ -2217,8 +2232,11 @@ def wide_kernels(device) -> dict:
         ktab = chain.taps.ktab.cpu().numpy()
         log(f"wide bank, {nr_ch} channels: ROW={plan.row} U={plan.win} "
             f"halfcols={plan.halfcols}; {block.numel() // plan.row} rows; "
-            f"grouped: {chain.taps.tile_rows}-row tiles x "
-            f"{chain.taps.chans_per_block} channels a block, "
+            f"grouped: K1 {chain.taps.body} body, {chain.taps.tile_rows}-row "
+            f"tiles x {chain.taps.chans_per_block} channels a block, "
+            f"{chain.taps.stages} row buffers; K5 "
+            f"{chain.taps.exact.tile_rows}-row tiles, "
+            f"{chain.taps.exact.n_sub} sub-blocks, "
             f"{int((ktab[:, 1] - ktab[:, 0]).sum())} tile k-steps of "
             f"{-(-plan.win // 32) * ktab.shape[0]}, taps "
             f"{chain.taps.tap_block_bytes} B a block")
@@ -2240,57 +2258,65 @@ def wide_kernels(device) -> dict:
 AIRSPY_CHANNELS = 232
 AIRSPY_BURSTS = tuple(5 + 28 * i for i in range(8))
 AIRSPY_SAMPLES = 9_000_000      # 3 s at 3 Msps
+# BENCH_SUITE's channelizer settings (1 Msps, decimation 40, 128 taps) at
+# 64 channels 12.5 kHz apart within +-400 kHz, where K1 runs its bank body;
+# a POCSAG burst on every 9th from channel 3
+BANK_CHANNELS = 64
+BANK_BURSTS = tuple(3 + 9 * i for i in range(7))
+BANK_SAMPLES = 2_000_000        # 2 s at 1 Msps
 
 
-def airspy_capture(offsets, fs):
-    """cs16 IQ of one POCSAG burst on each AIRSPY_BURSTS channel, 60,000
-    samples apart, in noise. Returns (iq [n, 2] int16, expected (capcode,
-    text) per burst)."""
+def bank_capture(offsets, fs, bursts, n, label):
+    """cs16 IQ of ``n`` samples with one POCSAG burst on each ``bursts``
+    channel, 60,000 samples apart (at 3 Msps; in proportion at ``fs``),
+    in noise. Returns (iq [n, 2] int16, expected (capcode, text) per
+    burst)."""
     import numpy as np
 
     from tsl_sdr_tpu_torch.testing import pager, pocsag_gen
 
-    iq = np.random.default_rng(13).normal(scale=60,
-                                          size=(AIRSPY_SAMPLES, 2))
+    iq = np.random.default_rng(13).normal(scale=60, size=(n, 2))
     expected = []
-    for i, k in enumerate(AIRSPY_BURSTS):
-        cap, text = 1_300_000 + 100 * i, f"AIRSPY 232CH CH{k}"
+    step = 60_000 * fs // 3_000_000
+    for i, k in enumerate(bursts):
+        cap, text = 1_300_000 + 100 * i, f"{label} CH{k}"
         bb = pocsag_gen.generate(
             [pocsag_gen.PocsagBurst(capcode=cap, function=1, kind="alpha",
                                     content=text)],
             baud=1200, amplitude=4096, tail_bits=256)
         x = pager.fm_mod(bb, 38_400, offsets[k], fs, amp=3000)
-        s = 100_000 + 60_000 * i
+        s = 100_000 * fs // 3_000_000 + step * i
         iq[s:s + len(x)] += x
         expected.append((cap, text))
     return np.clip(np.round(iq), -32768, 32767).astype(np.int16), expected
 
 
-def wide_multifm_runs(device, tmp: Path, totals: dict) -> dict:
-    """Phase 17 (b): ``multifm-torch`` at etc/multifm_airspy.json's rate,
-    decimation and taps with 232 channels, on a cs16 ``--iq-file``: both
-    tiers (python runtime) with the launch counts read around each run,
-    which must show grouped launches; every burst decodes; each tier's PCM
-    equals its plain-version run byte for byte on all 232 channels."""
+def wide_multifm_runs(device, tmp: Path, totals: dict, label: str, base,
+                      offsets, bursts, n: int, kernels: dict) -> dict:
+    """Phase 17 (b), (c): ``multifm-torch`` with ``base``'s rate,
+    decimation and taps at the channel ``offsets`` (Hz), on a cs16
+    ``--iq-file`` of ``n`` samples with a POCSAG burst on each ``bursts``
+    channel: both tiers (python runtime) with the launch counts read around
+    each run, which must show ``kernels[tier]``; every burst decodes; each
+    tier's PCM equals its plain-version run byte for byte on every
+    channel."""
     import numpy as np
 
     from tsl_sdr_tpu_torch.cli import multifm
 
-    base = json.loads((HERE / "etc" / "multifm_airspy.json").read_text())
     fs = base["sampleRateHz"]
-    offsets = -1_450_000 + 12_500 * np.arange(AIRSPY_CHANNELS)
-    iq, expected = airspy_capture(offsets, fs)
-    cap_path = tmp / "airspy232.cs16"
+    iq, expected = bank_capture(offsets, fs, bursts, n, label.upper())
+    cap_path = tmp / f"{label}.cs16"
     iq.tofile(cap_path)
     del iq
 
     def run(tag, flags, kernels, plain=False):
         cfg = {k: v for k, v in base.items() if k != "channels"}
         cfg["channels"] = [
-            {"outFifo": str(tmp / f"w_{tag}_ch{k}.pcm"),
+            {"outFifo": str(tmp / f"{label}_{tag}_ch{k}.pcm"),
              "chanCenterFreq": base["centerFreqHz"] + int(off)}
             for k, off in enumerate(offsets)]
-        cfg_path = tmp / f"w_{tag}.json"
+        cfg_path = tmp / f"{label}_{tag}.json"
         cfg_path.write_text(json.dumps(cfg))
         argv = [str(cfg_path), "--iq-file", str(cap_path), "--iq-format",
                 "cs16", "--runtime", "python", "--device", device, *flags]
@@ -2304,38 +2330,34 @@ def wide_multifm_runs(device, tmp: Path, totals: dict) -> dict:
                         rc = multifm.main(argv)
                 else:
                     rc = multifm.main(argv)
-            require(rc == 0, f"multifm-torch {tag} exited {rc}: "
+            require(rc == 0, f"multifm-torch {label} {tag} exited {rc}: "
                     f"{err.getvalue()}")
             return time.perf_counter() - t0
 
-        wall = go() if plain else on_path(f"multifm-torch {tag}", kernels,
-                                          go, totals)
-        pcm = [np.fromfile(tmp / f"w_{tag}_ch{k}.pcm", np.int16)
-               for k in range(AIRSPY_CHANNELS)]
+        wall = go() if plain else on_path(f"multifm-torch {label} {tag}",
+                                          kernels, go, totals)
+        pcm = [np.fromfile(tmp / f"{label}_{tag}_ch{k}.pcm", np.int16)
+               for k in range(len(offsets))]
         return pcm, wall
 
     res = {}
-    for tier, flags, kernels in (
-            ("exact", ["--exact"], ("exact_fir", "exact_fir_grouped")),
-            ("production", [], ("chain_fm", "chain_fm_grouped"))):
-        pcm, wall = run(tier, flags, kernels)
-        for i, k in enumerate(AIRSPY_BURSTS):
+    for tier, flags in (("exact", ["--exact"]), ("production", [])):
+        pcm, wall = run(tier, flags, kernels[tier])
+        for i, k in enumerate(bursts):
             got = decode_25k(pcm[k], device)
-            require(got == [expected[i]], f"multifm-torch 232 channels "
-                    f"{tier} channel {k} decoded {got}, expected "
-                    f"{expected[i]}")
+            require(got == [expected[i]], f"multifm-torch {label} {tier} "
+                    f"channel {k} decoded {got}, expected {expected[i]}")
         plain_pcm, plain_wall = run(f"{tier}_plain", flags, (), plain=True)
         require(all(p.size > 0 and p.tobytes() == q.tobytes()
                     for p, q in zip(pcm, plain_pcm)),
-                f"multifm-torch 232 channels {tier}: PCM differs from the "
+                f"multifm-torch {label} {tier}: PCM differs from the "
                 f"plain-version run")
         res[tier] = {"wall_s": wall, "plain_wall_s": plain_wall,
-                     "msps": AIRSPY_SAMPLES / wall / 1e6,
-                     "samples": AIRSPY_SAMPLES}
-        log(f"multifm-torch 232 channels {tier}: 8 of 8 bursts decode; "
-            f"{AIRSPY_SAMPLES} samples in {wall:.3f} s = "
-            f"{AIRSPY_SAMPLES / wall / 1e6:.2f} Msps; PCM of all "
-            f"{AIRSPY_CHANNELS} channels == the plain-version run "
+                     "msps": n / wall / 1e6, "samples": n}
+        log(f"multifm-torch {label} ({len(offsets)} channels) {tier}: "
+            f"{len(bursts)} of {len(bursts)} bursts decode; {n} samples in "
+            f"{wall:.3f} s = {n / wall / 1e6:.2f} Msps; PCM of all "
+            f"{len(offsets)} channels == the plain-version run "
             f"({plain_wall:.3f} s)")
     return res
 
@@ -2343,9 +2365,26 @@ def wide_multifm_runs(device, tmp: Path, totals: dict) -> dict:
 def wide_phase(device, totals: dict) -> dict:
     """Phase 17: wide channel banks, K1 and K5 at BENCH_SUITE's block, then
     multifm-torch at 232 channels."""
+    import numpy as np
+
     res = {"kernels": wide_kernels(device)}
+    airspy = json.loads((HERE / "etc" / "multifm_airspy.json").read_text())
+    bank = json.loads((HERE / "etc" / "multifm_rtlsdr_8ch.json").read_text())
+    bank["lpfTaps"] = [float(v) for v in bench_bank(BANK_CHANNELS)[0]]
     with tempfile.TemporaryDirectory() as tmp:
-        res["multifm"] = wide_multifm_runs(device, Path(tmp), totals)
+        res["multifm"] = wide_multifm_runs(
+            device, Path(tmp), totals, "airspy232", airspy,
+            -1_450_000 + 12_500 * np.arange(AIRSPY_CHANNELS), AIRSPY_BURSTS,
+            AIRSPY_SAMPLES,
+            {"exact": ("exact_fir", "exact_fir_grouped"),
+             "production": ("chain_fm", "chain_fm_grouped")})
+        res["multifm_bank"] = wide_multifm_runs(
+            device, Path(tmp), totals, "bank64", bank,
+            -400_000 + 12_500 * np.arange(BANK_CHANNELS), BANK_BURSTS,
+            BANK_SAMPLES,
+            {"exact": ("exact_fir", "exact_fir_grouped"),
+             "production": ("chain_fm", "chain_fm_grouped",
+                            "chain_fm_bank")})
     return res
 
 
@@ -2444,12 +2483,16 @@ def smoke(device: str) -> dict:
              "max_abs_err": k3_err, **k3_q14},
             *front["kernels"],
             exact["kernel"],
+            {"name": "chain_fm_bank", "route": "cuda",
+             "source": "tsl_sdr_tpu_torch/csrc/bank.cu",
+             "replaces": "tsl_sdr_tpu/ops/pallas_chain.py:279",
+             "max_abs_err": wide_k["err"], **wide_k[64]["chain_fm"]},
             {"name": "chain_fm_grouped", "route": "cuda",
-             "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
+             "source": "tsl_sdr_tpu_torch/csrc/bank.cu",
              "replaces": "tsl_sdr_tpu/ops/pallas_chain.py:167",
              "max_abs_err": wide_k["err"], **wide_k[256]["chain_fm"]},
             {"name": "exact_fir_grouped", "route": "cuda",
-             "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
+             "source": "tsl_sdr_tpu_torch/csrc/bank.cu",
              "replaces": "tsl_sdr_tpu/ops/packed_fir.py:286",
              "max_abs_err": wide_k["err"], **wide_k[256]["exact_fir_raw"]},
         ],
@@ -2538,6 +2581,9 @@ def main() -> int:
         log(f"{card} | multifm-torch {tag}: {json.dumps(r)}")
     for tier, r in summary["wide"]["multifm"].items():
         log(f"{card} | multifm-torch 232 channels {tier}: {json.dumps(r)}")
+    for tier, r in summary["wide"]["multifm_bank"].items():
+        log(f"{card} | multifm-torch 64 channels (bank body) {tier}: "
+            f"{json.dumps(r)}")
     for nr_ch in WIDE_CHANNELS:
         for name, r in summary["wide"]["kernels"][nr_ch].items():
             log(f"{card} | {name} at {nr_ch} channels: {json.dumps(r)}")

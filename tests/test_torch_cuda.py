@@ -406,14 +406,20 @@ def test_checkpoint_moves_between_card_and_cpu(cuda, pager_capture, tmp_path,
     assert _legs(first, second, iq, tmp_path / "s.npz") == want
 
 
+# rows = 3 of K5's tiles + extra: whole tiles, a ragged last one, 70,768
+# rows at the pager (277 units for the card's 132 blocks, a run of units
+# ending mid-block, more than 65,535 rows) and 37 rows at 8 channels (the
+# tile cut by launch_rows)
 @pytest.mark.parametrize("bank,extra", [("pager", 0), ("pager", 5),
-                                        ("8ch", 3)])
+                                        ("8ch", 3), ("pager", 70_000),
+                                        ("8ch", -443)])
 @pytest.mark.parametrize("out", ["q14", "raw"])
 def test_exact_fir_kernel_matches_plain(cuda, bank, extra, out):
     """K5, both epilogues, EXACTLY equal to its plain version: the pager
-    bank (ROW 128, staged taps) and etc/multifm_rtlsdr_8ch.json's (ROW 640,
-    64 columns a half), whole tiles and a ragged last one, full-scale
-    input."""
+    bank (ROW 128, taps resident, 256-row tiles) and
+    etc/multifm_rtlsdr_8ch.json's (ROW 640, 64 columns a half, taps from
+    L2), whole tiles, a ragged last one, many units and a short block,
+    full-scale input."""
     from tsl_sdr_tpu_torch.ops import exact_fir as k5
     from tsl_sdr_tpu_torch.utils.config import MultifmConfig
 
@@ -425,7 +431,7 @@ def test_exact_fir_kernel_matches_plain(cuda, bank, extra, out):
                                  / "etc" / "multifm_rtlsdr_8ch.json")
         ch = MultifmChain.from_config(cfg, exact=True, device=cuda)
     plan = ch.packed_plan
-    rows = 3 * ch.taps.tile_rows + extra
+    rows = 3 * ch.taps.exact.tile_rows + extra
     rng = np.random.default_rng(8)
     vals = torch.from_numpy(rng.integers(
         -32768, 32768, size=plan.carry_vals + rows * plan.row).astype(
@@ -477,21 +483,27 @@ def _adversarial(taps):
                         grouped=taps.grouped)
 
 
-@pytest.mark.parametrize("shape", [16, 64, 256, "airspy_232ch"])
-@pytest.mark.parametrize("case", ["ragged", "adversarial"])
+@pytest.mark.parametrize("shape", [16, 40, 64, 256, "airspy_232ch"])
+@pytest.mark.parametrize("case", ["ragged", "adversarial", "many units"])
 def test_wide_bank_kernels_match_plain(cuda, shape, case):
-    """K1 and K5 (both epilogues) with grouped operands, in channel blocks
-    at 256 and 232 channels, EXACTLY equal to their plain versions on a
-    block with a ragged last tile, and on all -32768 against taps of
-    +-32767; two halves of a block equal the whole."""
+    """K1 and K5 (both epilogues) with grouped operands, EXACTLY equal to
+    their plain versions on a block with a ragged last tile, on all -32768
+    against taps of +-32767, and on 5,007 rows (more units than the
+    persistent grid has blocks, runs that end mid-block); two halves of a
+    block equal the whole. K1 runs its bank body at 16-256 channels (at 40
+    in three sub-blocks of 16, the last half padding) and its tile body in
+    channel blocks at 232; K5 runs sub-blocks of 32 tap tiles, resident,
+    or at 232 channels 15 of at most 32 read from L2."""
     from tsl_sdr_tpu_torch.ops import exact_fir as k5
 
     ch = MultifmChain(*_wide_bank(shape), device=cuda)
     taps, plan = ch.taps, ch.packed_plan
     assert taps.grouped
-    assert (taps.chans_per_block < plan.nr_channels) == (shape in (
-        256, "airspy_232ch"))
-    rows = 3 * taps.tile_rows + 5
+    assert taps.body == ("tile" if shape == "airspy_232ch" else "bank")
+    assert (taps.chans_per_block < plan.nr_channels) == (shape != 16)
+    rows = 3 * max(taps.tile_rows, taps.exact.tile_rows) + 5
+    if case == "many units":
+        rows = 5007
     n = plan.carry_vals + rows * plan.row
     if case == "adversarial":
         taps = _adversarial(taps)
@@ -502,7 +514,8 @@ def test_wide_bank_kernels_match_plain(cuda, shape, case):
     carry, block = vals[:plan.carry_vals], vals[plan.carry_vals:]
     prev = torch.from_numpy(np.random.default_rng(7).normal(
         scale=1e5, size=(2, plan.nr_channels)).astype(np.float32)).to(cuda)
-    before = (k1.chain_fm.grouped_launches, k5.exact_fir.grouped_launches)
+    before = (k1.chain_fm.grouped_launches, k5.exact_fir.grouped_launches,
+              k1.chain_fm.bank_launches)
     got, gprev = k1.chain_fm(taps, carry, prev, block)
     ref, rprev = k1.chain_fm_plain(taps, carry, prev, block)
     assert torch.equal(got, ref) and torch.equal(gprev, rprev)
@@ -513,8 +526,9 @@ def test_wide_bank_kernels_match_plain(cuda, shape, case):
             g5, r5 = torch.stack(g5), torch.stack(r5)
         assert torch.equal(g5, r5), out
     torch.cuda.synchronize()
-    assert (k1.chain_fm.grouped_launches, k5.exact_fir.grouped_launches) \
-        == (before[0] + 1, before[1] + 2)
+    assert (k1.chain_fm.grouped_launches, k5.exact_fir.grouped_launches,
+            k1.chain_fm.bank_launches) \
+        == (before[0] + 1, before[1] + 2, before[2] + (taps.body == "bank"))
     half = (rows // 2) * plan.row
     carry2 = block[half - plan.carry_vals:half].contiguous()
     a, p_a = k1.chain_fm(taps, carry, prev, block[:half])

@@ -1,5 +1,9 @@
-// K1: fused packed channelizer + FM discriminator, one block of rows; and
-// K5, the exact packed FIR: the same main loop with integer epilogues.
+// K1: fused packed channelizer + FM discriminator, one block of rows: the
+// tile body, for the launches whose taps fit in shared memory beside a
+// tile (the pager block, multifm_rtlsdr_8ch) and those where not even the
+// bank body (bank.cu, which K1 takes at BENCH_SUITE's 16-256 channels and
+// K5 at every shape) keeps them resident (decimation 50, the Airspy band's
+// 232 channels).
 //
 // Replaces the TPU kernels in tsl_sdr_tpu/ops/pallas_chain.py:
 // _chain_kernel_v2 + _chain_body + _chain_call_v2 (the zero-copy form) and
@@ -68,75 +72,25 @@
 // from another. grid.x is the fastest axis: the blocks that stage the same
 // rows run together and find them in L2. One block of all channels where
 // it fits (every shape before wide banks keeps its launch); else the widest
-// block beside 32 rows, since at wide banks the taps come from L2 once a
-// tile and a channel block, so their traffic a row falls with TR. TR + 1 (the
+// block beside 32 rows, since then the taps come from L2 once a tile and a
+// channel block, so their traffic a row falls with TR. TR + 1 (the
 // tile's rows and its look-back row) is a multiple of 16 (32 or more where
 // shared memory allows: at decimation 50 a row is 3,200 values and only 16
 // rows fit); each tile recomputes its own look-back row for the FM
 // history of its first row, so tiles run in any order.
 //
-// K5 (template mode kQ14 / kRaw) replaces the bit-exact tier's device
-// stage, tsl_sdr_tpu/ops/packed_fir.py packed_fir_step_exact (an XLA int16 x
-// int16 -> int32 jnp.dot, or _grouped_matmul; torch's CUDA matmul takes no
-// int16 operands). It runs K1's staging and IMMA main loop unchanged, so
-// its int32 sums are K1's bit for bit, and writes them from the fragments
-// straight to device memory: kQ14 as the reference's Q.28 -> Q.14 rounding
-// (a >> 14) + ((a >> 13) & 1), narrowed mod 2^16, into two int16 planes
-// [re | im] of [rows, HC]; kRaw as the int32 sums [rows, 2*HC] (the fast
-// tier's debug tap). Its bound is K1's (operations); the look-back row each
-// tile recomputes is wasted work here, kept so that both kernels share one
-// tiling.
-//
-// Numerics: every float operation of the FM stage is written with an
-// explicit round-to-nearest intrinsic (no FMA contraction) in the order of
-// the plain torch version (tsl_sdr_tpu_torch/ops/fm.py), and the divides
-// are IEEE divides, so the kernel and the plain version agree bit for bit
-// whenever their int32 accumulators do (always: integer sums are exact).
+// Numerics: the FM stage is fm.cuh's, bit for bit the plain torch version
+// whenever the int32 accumulators agree (always: integer sums are exact).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fm.cuh"
 #include "imma_split.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr float kPi = 3.14159265358979f;       // == np.float32(np.pi)
-constexpr float kHalfPi = 1.57079632679490f;   // == np.float32(np.pi / 2)
-
-__device__ __forceinline__ float atan2_poly(float y, float x) {
-  const float ya = fabsf(y), xa = fabsf(x);
-  const float hi = fmaxf(ya, xa);
-  const float safe = hi == 0.0f ? 1.0f : hi;
-  const float z = __fdiv_rn(fminf(ya, xa), safe);
-  const float z2 = __fmul_rn(z, z);
-  float p = -0.0117212f;
-  p = __fadd_rn(__fmul_rn(p, z2), 0.05265332f);
-  p = __fadd_rn(__fmul_rn(p, z2), -0.11643287f);
-  p = __fadd_rn(__fmul_rn(p, z2), 0.19354346f);
-  p = __fadd_rn(__fmul_rn(p, z2), -0.33262348f);
-  p = __fadd_rn(__fmul_rn(p, z2), 0.99997726f);
-  const float base = __fmul_rn(z, p);
-  const float ax = x >= 0.0f ? (y >= 0.0f ? base : -base)
-                             : (y >= 0.0f ? __fsub_rn(kPi, base)
-                                          : __fsub_rn(base, kPi));
-  const float ay = y >= 0.0f
-      ? (x >= 0.0f ? __fsub_rn(kHalfPi, base) : __fadd_rn(kHalfPi, base))
-      : (x >= 0.0f ? __fsub_rn(base, kHalfPi) : __fsub_rn(-base, kHalfPi));
-  return xa > ya ? ax : ay;
-}
-
-__device__ __forceinline__ int16_t fm_pcm(float ar, float ai, float pr,
-                                          float pi, float omega) {
-  const float sre = __fadd_rn(__fmul_rn(ar, pr), __fmul_rn(ai, pi));
-  const float sim = __fsub_rn(__fmul_rn(ai, pr), __fmul_rn(ar, pi));
-  float phi = __fadd_rn(atan2_poly(sim, sre), omega);
-  phi = phi > kPi ? __fsub_rn(phi, 2.0f * kPi) : phi;
-  phi = phi <= -kPi ? __fadd_rn(phi, 2.0f * kPi) : phi;
-  if (sre == 0.0f && sim == 0.0f) phi = 0.0f;
-  return (int16_t)truncf(__fmul_rn(__fdiv_rn(phi, kPi), 16384.0f));
-}
-
 constexpr int kPitchPad = 16;   // bytes past ROW per staged row
 constexpr int kNtG = 4;         // n8 tiles a warp owns at a time
 constexpr int kBatch = 4;       // staging loads a thread keeps in flight
@@ -152,11 +106,6 @@ __host__ __device__ size_t x_bytes(int tr, int row, int cr) {
 __host__ __device__ size_t acc_bytes(int tr, int hcb) {
   return 2 * (size_t)(tr + 1) * hcb * sizeof(float);
 }
-
-// epilogues: K1's FM discriminator, K5's rounded planes, K5's raw sums
-constexpr int kFm = 0;
-constexpr int kQ14 = 1;
-constexpr int kRaw = 2;
 
 // local column rem = j * cpb + cl of a half of channel block c0 -> the
 // output column j * nr_ch + c0 + cl, or -1 for a padding channel; one block
@@ -225,9 +174,7 @@ __device__ __forceinline__ void k_loop(imma::Acc (&acc)[2][kNtG],
 // group's fragments step after step, its tiles side by side, and a
 // block's groups one after another (ops/chain.py ChainTaps). stage_taps:
 // copy the block's tap fragments to shared memory (else they are read from
-// device memory through L2). out:
-// kFm int16 [rows, hc]; kQ14 int16 [2, rows, hc]; kRaw int32 [rows, 2*hc].
-template <int kMode>
+// device memory through L2). out: int16 [rows, hc].
 __global__ void __launch_bounds__(kThreads)
 chain_kernel(const int16_t* __restrict__ carry,
              const int16_t* __restrict__ block,
@@ -236,7 +183,7 @@ chain_kernel(const int16_t* __restrict__ carry,
              const int4* __restrict__ ktab,
              const float* __restrict__ omega,
              const float* __restrict__ prev,
-             void* __restrict__ out,
+             int16_t* __restrict__ out,
              float* __restrict__ prev_out,
              int rows, int row, int cr, int ksteps, int nr_ch, int opr,
              int cpb, int tr, int tile0, int stage_taps) {
@@ -392,27 +339,11 @@ chain_kernel(const int16_t* __restrict__ carry,
           const int ri = lc >= hcb ? 1 : 0;
           const int rem = lc - ri * hcb;   // (j, cl) in the block's half
           const int sum = (int)imma::combine(acc[h][j], i);
-          if constexpr (kMode == kFm) {
-            (ri ? acc_im : acc_re)[lr * hcb + rem] = __int2float_rn(sum);
-          } else {
-            // K5: output row r0 + lr - 1; the look-back row is dropped
-            const int col = global_col(rem, c0, cpb, nr_ch);
-            if (lr >= 1 && lr <= n_out && col >= 0) {
-              const size_t r = (size_t)(r0 + lr - 1);
-              if constexpr (kMode == kRaw) {
-                static_cast<int*>(out)[r * 2 * hc + ri * hc + col] = sum;
-              } else {
-                const size_t plane = ri ? (size_t)rows * hc : 0;
-                static_cast<int16_t*>(out)[plane + r * hc + col] =
-                    (int16_t)((sum >> 14) + ((sum >> 13) & 1));
-              }
-            }
-          }
+          (ri ? acc_im : acc_re)[lr * hcb + rem] = __int2float_rn(sum);
         }
       }
     }
   }
-  if constexpr (kMode != kFm) return;
   __syncthreads();
 
   // output (lr, j, c): its history is (lr, j - 1, c), or (lr - 1, opr - 1,
@@ -433,8 +364,8 @@ chain_kernel(const int16_t* __restrict__ carry,
       pr = prev[c0 + rem];
       pi = prev[nr_ch + c0 + rem];
     }
-    static_cast<int16_t*>(out)[(size_t)(r0 + lr - 1) * hc + col] =
-        fm_pcm(acc_re[lr * hcb + rem], acc_im[lr * hcb + rem], pr, pi,
+    out[(size_t)(r0 + lr - 1) * hc + col] =
+        fm::fm_pcm(acc_re[lr * hcb + rem], acc_im[lr * hcb + rem], pr, pi,
                omega[col]);
   }
   // the last output row's baseband seeds the next block's FM history
@@ -450,7 +381,6 @@ chain_kernel(const int16_t* __restrict__ carry,
 // raise the kernel's shared-memory ceiling once per device (the attribute
 // applies to the current device only), not on every launch; then launch,
 // in runs of at most kMaxGridY row tiles
-template <int kMode>
 int launch(const void* carry, const void* block, const void* w_hi,
            const void* w_lo, const void* ktab, const void* omega,
            const void* prev, void* out, void* prev_out, int rows, int row,
@@ -473,7 +403,7 @@ int launch(const void* carry, const void* block, const void* w_hi,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices || (int)smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(chain_kernel<kMode>,
+    err = cudaFuncSetAttribute(chain_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -484,10 +414,10 @@ int launch(const void* carry, const void* block, const void* w_hi,
   for (int t0 = 0; t0 < tiles; t0 += kMaxGridY) {
     const int run = tiles - t0 < kMaxGridY ? tiles - t0 : kMaxGridY;
     const dim3 grid(n_blocks, run);
-    chain_kernel<kMode><<<grid, kThreads, smem, stream>>>(
+    chain_kernel<<<grid, kThreads, smem, stream>>>(
         (const int16_t*)carry, (const int16_t*)block, (const uint2*)w_hi,
         (const uint2*)w_lo, (const int4*)ktab, (const float*)omega,
-        (const float*)prev, out, (float*)prev_out, rows, row, cr,
+        (const float*)prev, (int16_t*)out, (float*)prev_out, rows, row, cr,
         (u_len + 31) / 32, nr_ch, opr, cpb, tr, t0, stage_taps);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -512,33 +442,9 @@ extern "C" int tsl_chain_fm(const void* carry, const void* block,
                             int rows, int row, int cr, int u_len, int nr_ch,
                             int opr, int cpb, int tr, int tap_bytes,
                             void* stream) {
-  return launch<kFm>(carry, block, w_hi, w_lo, ktab, omega, prev, out,
-                     prev_out, rows, row, cr, u_len, nr_ch, opr, cpb, tr,
-                     tap_bytes, (cudaStream_t)stream);
-}
-
-// K5: the same operands without the FM stage -> out_mode 1: int16 [2, rows,
-// opr*nr_ch] (a_re plane, then a_im), the Q.28 -> Q.14 rounded sums;
-// out_mode 2: int32 [rows, 2*opr*nr_ch], the sums themselves. Same
-// requirements as tsl_chain_fm.
-extern "C" int tsl_exact_fir(const void* carry, const void* block,
-                             const void* w_hi, const void* w_lo,
-                             const void* ktab, void* out, int rows, int row,
-                             int cr, int u_len, int nr_ch, int opr, int cpb,
-                             int tr, int tap_bytes, int out_mode,
-                             void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (out_mode == kQ14) {
-    return launch<kQ14>(carry, block, w_hi, w_lo, ktab, nullptr, nullptr,
-                        out, nullptr, rows, row, cr, u_len, nr_ch, opr, cpb,
-                        tr, tap_bytes, st);
-  }
-  if (out_mode == kRaw) {
-    return launch<kRaw>(carry, block, w_hi, w_lo, ktab, nullptr, nullptr,
-                        out, nullptr, rows, row, cr, u_len, nr_ch, opr, cpb,
-                        tr, tap_bytes, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch(carry, block, w_hi, w_lo, ktab, omega, prev, out, prev_out,
+                rows, row, cr, u_len, nr_ch, opr, cpb, tr, tap_bytes,
+                (cudaStream_t)stream);
 }
 
 extern "C" const char* tsl_error_string(int err) {

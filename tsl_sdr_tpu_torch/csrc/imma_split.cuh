@@ -54,6 +54,47 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint8_t* plane,
       : "r"(addr));
 }
 
+// The same fragments, high and low, from raw int16 rows in shared memory
+// (no split planes): one ldmatrix.x4 of b16 gives lane (g, t) the values
+// at columns 2t, 2t+1, 8+2t, 9+2t of rows g and g+8 (the four 8x8 b16
+// matrices (rows 0-7 | 8-15) x (values 0-7 | 8-15)), a second one the same
+// 16 values on, and __byte_perm splits each pair of registers into four
+// high and four low bytes. So fragment position p = 16h + 4t + i of a
+// 32-value step holds value 16h + 2t + (i & 1) + 8(i >> 1) of the row: the
+// B operand's k order is permuted to match on the host
+// (ops/imma_split.py RAW_K_ORDER). Rows at a pitch of 16 bytes times an odd
+// number keep ldmatrix's 8 rows on distinct banks; col0 % 16 == 0 (values).
+// the byte offset of the row and value this lane addresses for
+// load_a_raw, within a 16-row by 16-value block of the rows
+__device__ __forceinline__ int raw_lane_offset(int pitch) {
+  const int lane = threadIdx.x & 31;
+  return ((lane & 7) + ((lane >> 4) << 3)) * pitch + (((lane >> 3) & 1) << 4);
+}
+
+// addr: the shared-memory address of row row0, value col0 of the rows
+// plus raw_lane_offset
+__device__ __forceinline__ void load_a_raw(uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4],
+                                           uint32_t addr) {
+  uint32_t r[8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[4 * h]), "=r"(r[4 * h + 1]), "=r"(r[4 * h + 2]),
+          "=r"(r[4 * h + 3])
+        : "r"(addr + 32 * h));
+  }
+  // a0: row g, a1: row g + 8, a2, a3: the same 16 values on
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    const uint32_t x = r[(f >> 1) * 4 + (f & 1) * 2];
+    const uint32_t y = r[(f >> 1) * 4 + (f & 1) * 2 + 1];
+    hi[f] = __byte_perm(x, y, 0x7531);
+    lo[f] = __byte_perm(x, y, 0x6420);
+  }
+}
+
 // the three accumulator sets of one 16x8 output tile (C-fragment layout:
 // c[0], c[1] at row lane/4, columns 2*(lane%4) + 0, 1; c[2], c[3] 8 rows on)
 struct Acc {

@@ -35,8 +35,10 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "tsl_chain_fm": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "tsl_chain_fm_bank": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tsl_exact_fir": [_P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tsl_row_resample": [_P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _L, _I, _I, _P],
     "tsl_frame_resample": [_P, _P, _P, _P, _P, _P,

@@ -9,18 +9,22 @@ each ``(P >> 14) + ((P >> 13) & 1)`` narrowed mod 2^16 (the exact tier's
 FIR planes), or ``out="raw"``: ``P`` itself, int32 ``[rows, 2*opr*C]`` (the
 fast tier's debug tap, which needs the baseband K1 never writes).
 
-On a CUDA tensor it launches ``csrc/chain.cu`` in its K5 modes: K1's
-staging and int8 tensor-core main loop with integer epilogues in place of
-the FM stage, replacing the bit-exact tier's device stage
+On a CUDA tensor it launches ``csrc/bank.cu`` in its K5 modes (a
+persistent grid over (sub-block, row tile) units with the taps resident in
+shared memory where they fit, int8 tensor cores, integer epilogues),
+replacing the bit-exact tier's device stage
 ``tsl_sdr_tpu/ops/packed_fir.py`` ``packed_fir_step_exact`` (an XLA int16 x
 int16 -> int32 ``jnp.dot``, or ``_grouped_matmul`` for wide banks; torch's
 CUDA matmul takes no int16 operands). On a CPU tensor it runs
-:func:`exact_fir_plain`. The operands are K1's:
-:class:`tsl_sdr_tpu_torch.ops.chain.ChainTaps`, in either form of the
-product.
+:func:`exact_fir_plain`. The operands and launch shape are K5's own,
+``ChainTaps.exact`` (:class:`tsl_sdr_tpu_torch.ops.chain.ExactTaps`), in
+either form of the product; the tile is cut for a short block
+(``ExactTaps.launch_rows``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -66,17 +70,24 @@ def exact_fir(taps: ChainTaps, carry_vals: torch.Tensor,
         res = torch.empty((rows, 2 * hc), dtype=torch.int32,
                           device=block.device)
     lib = build.load()
+    xt = taps.exact
     stream = torch.cuda.current_stream(block.device).cuda_stream
     err = lib.tsl_exact_fir(
-        carry_vals.data_ptr(), block.data_ptr(), taps.w_hi.data_ptr(),
-        taps.w_lo.data_ptr(), taps.ktab.data_ptr(), res.data_ptr(), rows,
+        carry_vals.data_ptr(), block.data_ptr(), xt.w_hi.data_ptr(),
+        xt.w_lo.data_ptr(), xt.ktab.data_ptr(), res.data_ptr(), rows,
         plan.row, plan.cr_rows, plan.win, plan.nr_channels, plan.opr,
-        taps.chans_per_block, taps.tile_rows, taps.tap_block_bytes,
-        OUT_MODES[out], stream)
+        xt.tiles_per_block, xt.launch_rows(rows, _sm_count(block.device)),
+        xt.stages,
+        xt.tap_block_bytes if xt.staged else 0, OUT_MODES[out], stream)
     build.check(err, "tsl_exact_fir")
     exact_fir.launches += 1
     exact_fir.grouped_launches += taps.grouped
     return (res[0], res[1]) if out == "q14" else res
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 exact_fir.launches = 0

@@ -47,6 +47,18 @@ def split_i16(x):
     return (x >> 8).astype(np.int8), (x & 0xFF).astype(np.uint8)
 
 
+def raw_k_order(k: int) -> np.ndarray:
+    """The k order of taps for an A operand read as raw int16 rows and
+    split in registers (``imma::load_a_raw``): position ``p = 16h + 4t + i``
+    of each 32-value step holds value ``16h + 2t + (i & 1) + 8(i >> 1)``.
+    Returns, for ``k`` a multiple of 32, the source index of each
+    position; ``w[raw_k_order(len(w))]`` is the permuted tap matrix."""
+    p = np.arange(32)
+    h, t, i = p // 16, p % 16 // 4, p % 4
+    step = 16 * h + 2 * t + (i & 1) + 8 * (i >> 1)
+    return (np.arange(k // 32)[:, None] * 32 + step).reshape(-1)
+
+
 def fragment_planes(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """int16 ``[K, N]`` taps -> (high, low) byte planes ``[KT, NT, 32, 8]``
     (``KT = ceil(K / 32)``, ``NT = ceil(N / 8)``), zero-padded, each tile in
