@@ -11,9 +11,10 @@ deployment (``tsl_sdr_tpu_torch/testing/pager.py``: 1.2288 Msps, decimate by
 32, 577 taps, 6 POCSAG + 2 FLEX channels, 4,177,920-sample blocks), the
 decoder front end (``decoder-torch``, ``resampler-torch``) at the
 reference's resampler settings, the pipeline at decimation 50, the
-bit-exact tier, ``multifm-torch`` at ``etc/multifm_rtlsdr_8ch.json``, and
+bit-exact tier, ``multifm-torch`` at ``etc/multifm_rtlsdr_8ch.json``,
 wide channel banks (BENCH_SUITE's 64 and 256 channels, the Airspy band's
-232):
+232), and the Costas coherent chain (BENCH_SUITE's costas_chain_device
+row):
 
 1. the card's name and power limit; the kernels' build (nvcc) and the
    decoders' native state machines (g++);
@@ -121,10 +122,23 @@ wide channel banks (BENCH_SUITE's 64 and 256 channels, the Airspy band's
    byte for byte on all 232 channels; (c) the same at BENCH_SUITE's
    channelizer settings (1 Msps, decimation 40, 128 taps) on 64 channels
    12.5 kHz apart (a 2 s capture, 7 bursts), where K1 runs its bank body:
-   the production run must launch it (``chain_fm.bank_launches``).
+   the production run must launch it (``chain_fm.bank_launches``);
+18. the Costas coherent chain (``CostasChannelizer``: K5's raw sums, the
+   integer NCO, K6 ``csrc/costas.cu``) at BENCH_SUITE's costas_chain_device
+   settings (8 channels, 1 Msps, decimation 8, 64 taps, 2,000,000-sample
+   blocks, chunk 22): (a) K6 against its plain version on the chain's own
+   planes (250,000 x 8), at chunks 32 and 512 on 1 and 33 channels, on
+   adversarial planes and as two halves against the whole, exactly equal,
+   outputs and state; (b) the chain over 4 blocks, state carried, equal to
+   the run with every kernel swapped for its plain version; (c) an 8-channel
+   BPSK capture locks on every channel through ``step`` and through
+   ``process_array_native`` (the serial loop in C); (d) K6's device time in
+   turns with its plain version beside its latency bound (its chunks times
+   one turn of its chain, ``bench/costas_chain_probe.cu``), the chain's
+   wall a block (8 trials) and the native path's Msps.
 
-Each path of phases 4, 8, 9, 10, 14, 15, 16 and 17 and each run of phase
-12 runs with the
+Each path of phases 4, 8, 9, 10, 14, 15, 16, 17 and 18 and each run of
+phase 12 runs with the
 kernels' launch counts set to 0 just before it and read just after; a
 kernel of the path that never launched fails the run. jax, jaxlib and
 the JAX package (``tsl_sdr_tpu``) are made unimportable first, and none
@@ -132,7 +146,8 @@ may have loaded at the end, so the run also proves that the port needs
 none of them. A
 kernel's bound is the larger of its bytes over HBM's rate and its int16
 multiply-adds (four int8 tensor-core products each) over the int8 peak,
-from the H100's published peaks; the DC kernel's is its chain's latency.
+from the H100's published peaks; the DC kernel's and K6's are their
+chains' latency.
 Any failed check raises and the exit code is non-zero. The last two lines
 are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
 """
@@ -246,6 +261,7 @@ def cli_tiers(stderr: str) -> set:
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count."""
     from tsl_sdr_tpu_torch.ops import chain as k1
+    from tsl_sdr_tpu_torch.ops import costas as k6
     from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
     from tsl_sdr_tpu_torch.ops import exact_fir as k5
     from tsl_sdr_tpu_torch.ops import frame_resampler as k4
@@ -259,11 +275,13 @@ def launch_counts() -> dict:
             "row_resample": k3.row_resample.launches,
             "row_resample_q14": k3.row_resample.launches_q14,
             "frame_resample": k4.frame_resample.launches,
-            "dc_block_exact": dcb.dc_block_exact.launches}
+            "dc_block_exact": dcb.dc_block_exact.launches,
+            "costas_chunks": k6.costas_block_planes.launches}
 
 
 def zero_launch_counts() -> None:
     from tsl_sdr_tpu_torch.ops import chain as k1
+    from tsl_sdr_tpu_torch.ops import costas as k6
     from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
     from tsl_sdr_tpu_torch.ops import exact_fir as k5
     from tsl_sdr_tpu_torch.ops import frame_resampler as k4
@@ -278,6 +296,7 @@ def zero_launch_counts() -> None:
     k3.row_resample.launches_q14 = 0
     k4.frame_resample.launches = 0
     dcb.dc_block_exact.launches = 0
+    k6.costas_block_planes.launches = 0
 
 
 def on_path(name: str, kernels, fn, totals: dict):
@@ -315,7 +334,11 @@ def device_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` runs: the summed durations
     of the kernels and copies it ran, as CUPTI records them
     (``torch.profiler``), after a warm-up. Unlike :func:`time_ms` it leaves
-    out the host's time to enqueue them."""
+    out the host's time to enqueue them. Each run launches the same work,
+    so a kernel recorded ``n`` times ran ``round(n / reps)`` times a run;
+    the profiler now and then drops a record of a window (49 of 50, 15 of
+    20 seen), so each kernel counts at its mean duration times that many
+    (its total over ``reps`` where ``n`` is a multiple of ``reps``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -326,9 +349,10 @@ def device_ms(fn, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages())
-        if us > 0:
-            return us / reps / 1e3
+        timed = [e for e in prof.key_averages() if e.self_device_time_total]
+        if timed:
+            return sum(e.self_device_time_total / e.count
+                       * max(1, round(e.count / reps)) for e in timed) / 1e3
         log(f"the profiler recorded no device time (attempt {attempt + 1})")
     raise SmokeFailure("the profiler recorded no device time in 3 attempts")
 
@@ -1224,49 +1248,47 @@ def check_dc_adversarial(device) -> float:
     return worst
 
 
-def build_dc_probe():
-    """``bench/dc_chain_probe.cu`` (the exact DC kernel's chain alone on
-    registers) built beside the kernel library: (the library, its SASS by
-    kernel)."""
+def chain_probe(device, stem: str, turns: int, *args) -> tuple:
+    """A kernel's dependent chain alone on registers:
+    ``bench/<stem>.cu`` built beside the kernel library, its
+    ``tsl_<stem>(out, turns, *args, stream)`` run for ``turns`` turns
+    (clock64 cycles and globaltimer nanoseconds), beside nvidia-smi's SM
+    clock. Returns (the per-turn numbers, the opcodes of the probe's
+    kernel from its SASS, its instruction count)."""
     import ctypes
 
-    from tsl_sdr_tpu_torch.kernels import build
-
-    path = build.BUILD_DIR / "probe" / "libdc_chain_probe.so"
-    t0 = time.perf_counter()
-    build.compile_shared([HERE / "bench" / "dc_chain_probe.cu"], path)
-    lib = ctypes.CDLL(str(path))
-    lib.tsl_dc_chain_probe.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                       ctypes.c_void_p]
-    lib.tsl_dc_chain_probe.restype = ctypes.c_int
-    log(f"DC chain probe built in {time.perf_counter() - t0:.1f} s")
-    return lib, sass_by_kernel(path)
-
-
-def dc_chain_latency(device, turns: int = 1 << 20) -> dict:
-    """The DC kernel's bound per sample: one turn of its dependent chain,
-    run alone on registers by ``bench/dc_chain_probe.cu`` (clock64 cycles
-    and globaltimer nanoseconds over ``turns`` turns), beside the opcodes
-    of the probe's 16-turn loop from its SASS and nvidia-smi's SM clock."""
     import torch
 
     from tsl_sdr_tpu_torch.kernels import build
 
-    lib, sass = build_dc_probe()
+    path = build.BUILD_DIR / "probe" / f"lib{stem}.so"
+    t0 = time.perf_counter()
+    build.compile_shared([HERE / "bench" / f"{stem}.cu"], path)
+    fn = getattr(ctypes.CDLL(str(path)), f"tsl_{stem}")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                   *[ctypes.c_int] * len(args), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    log(f"{stem} built in {time.perf_counter() - t0:.1f} s")
     buf = torch.zeros(4, dtype=torch.int64, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     for t in (16, turns):
-        build.check(lib.tsl_dc_chain_probe(buf.data_ptr(), t, stream),
-                    "tsl_dc_chain_probe")
+        build.check(fn(buf.data_ptr(), t, *args, stream), f"tsl_{stem}")
     torch.cuda.synchronize()
     cycles, ns, _, _ = buf.cpu().tolist()
-    probe = next(ins for name, ins in sass.items()
-                 if "dc_chain_probe_kernel" in name)
-    ops = mnemonics(probe)
-    res = {"cycles_per_turn": cycles / turns, "ns_per_turn": ns / turns,
-           "probe_ghz": cycles / ns, "smi_sm_mhz": sm_clock_mhz(),
-           "sass_ops": {op: ops.get(op, 0)
-                        for op in ("SHF.R.S32.HI", "IMAD", "IADD3")}}
+    probe = next(ins for name, ins in sass_by_kernel(path).items()
+                 if f"{stem}_kernel" in name)
+    return ({"cycles_per_turn": cycles / turns, "ns_per_turn": ns / turns,
+             "probe_ghz": cycles / ns, "smi_sm_mhz": sm_clock_mhz()},
+            mnemonics(probe), len(probe))
+
+
+def dc_chain_latency(device, turns: int = 1 << 20) -> dict:
+    """The DC kernel's bound per sample: one turn of its dependent chain,
+    run alone on registers by ``bench/dc_chain_probe.cu``, beside the
+    opcodes of the probe's 16-turn loop from its SASS."""
+    res, ops, _ = chain_probe(device, "dc_chain_probe", turns)
+    res["sass_ops"] = {op: ops.get(op, 0)
+                       for op in ("SHF.R.S32.HI", "IMAD", "IADD3")}
     log(f"exact DC chain: {res['cycles_per_turn']:.3f} cycles = "
         f"{res['ns_per_turn']:.4f} ns a turn ({turns} turns alone on "
         f"registers; {res['probe_ghz']:.3f} GHz in the probe, nvidia-smi "
@@ -1508,8 +1530,9 @@ def plain_kernels():
     """Every kernel wrapper swapped for its plain torch version wherever a
     module of the port calls it (the same run with no hand kernel: the
     reference a card run is held to, there being no JAX on the card)."""
-    from tsl_sdr_tpu_torch.models import channelizer, resampler
+    from tsl_sdr_tpu_torch.models import channelizer, costas_channel, resampler
     from tsl_sdr_tpu_torch.ops import chain as k1
+    from tsl_sdr_tpu_torch.ops import costas as k6
     from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
     from tsl_sdr_tpu_torch.ops import exact_fir as k5
     from tsl_sdr_tpu_torch.ops import frame_resampler as k4
@@ -1519,10 +1542,12 @@ def plain_kernels():
     plain = {"chain_fm": k1.chain_fm_plain, "exact_fir": k5.exact_fir_plain,
              "row_resample": k3.row_resample_plain,
              "frame_resample": k4.frame_resample_plain,
-             "dc_block_exact": dcb.dc_block_exact_plain}
+             "dc_block_exact": dcb.dc_block_exact_plain,
+             "costas_block_planes": k6.costas_block_planes_plain}
     before = launch_counts()
     saved = []
-    for mod in (channelizer, resampler, polyphase, k4, dcb):
+    for mod in (channelizer, resampler, polyphase, k4, dcb, costas_channel,
+                k6):
         for name, fn in plain.items():
             if hasattr(mod, name):
                 saved.append((mod, name, getattr(mod, name)))
@@ -2388,8 +2413,353 @@ def wide_phase(device, totals: dict) -> dict:
     return res
 
 
+# -- phase 18: the Costas coherent chain ------------------------------------
+
+# BENCH_SUITE's costas_chain_device row (bench_suite.py prep_costas_device):
+# 8 channels at 1 Msps, decimation 8, a 64-tap low-pass, blocks of
+# 2,000,000 samples, loop gains 0.05 / 0.002
+COSTAS_BLOCK = 2_000_000
+COSTAS_BLOCKS = 4
+# the lock capture (tests/test_costas_channel.py) widened to 8 channels
+LOCK_FS = 256_000
+LOCK_OFFSETS = (-105_000, -75_000, -45_000, -15_000, 15_000, 45_000,
+                75_000, 105_000)
+
+
+def costas_bench_chain(device):
+    """BENCH_SUITE's costas_chain_device chain: 8 channels at offsets drawn
+    within +-fs/3, 1 Msps, decimation 8, 64 taps."""
+    import numpy as np
+
+    from tsl_sdr_tpu_torch.models.costas_channel import CostasChannelizer
+    from tsl_sdr_tpu_torch.utils.filter_design import firdes_low_pass
+
+    fs = 1_000_000
+    lpf = firdes_low_pass(1.0, fs, 40_000, 20_000)[:64]
+    offsets = np.random.default_rng(0).integers(-fs // 3, fs // 3, size=8)
+    return CostasChannelizer(lpf, offsets, fs, 8, alpha=0.05, beta=0.002,
+                             e_max_q14=8192, device=device)
+
+
+def costas_equal(params, st, xr, xi, chunk, where: str) -> float:
+    """K6 and its plain version on the card from the same planes and
+    state: outputs and state exactly equal. Returns the largest
+    difference (0)."""
+    from tsl_sdr_tpu_torch.ops import costas as k6
+
+    got = k6.costas_block_planes(params, st, xr, xi, chunk)
+    want = k6.costas_block_planes_plain(params, st, xr, xi, chunk)
+    pairs = ((got[1], want[1]), (got[2], want[2]),
+             (got[0].last_phase, want[0].last_phase),
+             (got[0].f_dev, want[0].f_dev))
+    worst = max(max_err(a, b) for a, b in pairs)
+    names = ("o_re", "o_im", "phase", "f_dev")
+    diff = [n for n, (a, b) in zip(names, pairs) if not a.equal(b)]
+    require(not diff, f"K6 {where}: {diff} differ from the plain version "
+            f"(max |diff| {worst})")
+    return worst
+
+
+def slice_planes(chain, iq, block: int, device):
+    """The loop's input planes of the capture's first block: K5's raw sums
+    derotated by the NCO and scaled by 2^-14 twice, as ``chain.step``
+    hands them to K6 ([K, C] float32 on ``device``)."""
+    import numpy as np
+    import torch
+
+    vals = torch.from_numpy(iq[:chain.carry_len + block].reshape(-1)
+                            .copy()).to(device)
+    yr, yi = chain._baseband(vals[:2 * chain.carry_len],
+                             vals[2 * chain.carry_len:], 0)
+    scale = float(np.float32(1.0 / 16384.0))
+    return yr * scale * scale, yi * scale * scale
+
+
+def check_costas(chain, iq, block: int, device) -> float:
+    """Phase 18 (a): K6 against its plain version on the card, exactly
+    equal: the slice's planes (the chain's first block, K = 250,000 at 8
+    channels, auto chunk 22 and its remainder of 14), random planes at
+    chunks 32 and 512 at 1 and 33 channels, adversarial planes (full scale
+    past the error clip, gains far past stable, states past both f_dev
+    clamps and at phase 0 with f_dev < 0), and a block as two halves split
+    at a multiple of the chunk against the whole."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import costas as k6
+
+    params = chain.params
+    xr, xi = slice_planes(chain, iq, block, device)
+    st = k6.init_costas_state(params, chain.nr_channels, device)
+    chunk = k6.stable_chunk(params)
+    worst = costas_equal(params, st, xr, xi, None, "slice block")
+    log(f"K6 vs plain, the slice's block ({xr.shape[0]} x {xr.shape[1]}, "
+        f"chunk {chunk}, remainder {xr.shape[0] % chunk}): exactly equal")
+    rng = np.random.default_rng(18)
+    cases = []
+    for ch, c in ((32, 1), (32, 33), (512, 1), (512, 33)):
+        k = 40 * ch + 7
+        planes = [torch.from_numpy(rng.normal(scale=0.4, size=(k, c))
+                                   .astype(np.float32)).to(device)
+                  for _ in range(2)]
+        st_r = k6.CostasState(
+            torch.from_numpy(rng.uniform(0, 2 * np.pi, size=c)
+                             .astype(np.float32)).to(device),
+            torch.from_numpy(rng.uniform(-0.05, 0.05, size=c)
+                             .astype(np.float32)).to(device))
+        worst = max(worst, costas_equal(params, st_r, *planes, ch,
+                                        f"random {k} x {c} chunk {ch}"))
+        cases.append(f"{k}x{c}/{ch}")
+    adv = k6.make_costas_params(1e-3, 0.5, 0.05, 8192)
+    for ch in (32, 512):
+        k = 6 * ch + 3
+        t = np.arange(k, dtype=np.float64)[:, None]
+        rot = np.array([0.9, -0.9, 2.5, -2.5, 0.0, 3.1])[None, :]
+        planes = [torch.from_numpy((1.99 * f(rot * t)).astype(np.float32))
+                  .to(device) for f in (np.cos, np.sin)]
+        st_a = k6.CostasState(
+            torch.tensor([0.0, 6.2831, 1e-7, 3.0, 6.28318, 0.5],
+                         device=device),
+            torch.tensor([-0.3, 0.3, 0.0, -0.29, 0.31, -0.31],
+                         device=device))
+        worst = max(worst, costas_equal(adv, st_a, *planes, ch,
+                                        f"adversarial chunk {ch}"))
+        _, o_re, o_im = k6.costas_block_planes(adv, st_a, *planes, ch)
+        require(float((o_re * o_im).abs().max()) > adv.e_max,
+                "K6 adversarial: the error clip never saturated")
+    cut = chunk * (xr.shape[0] // chunk // 2)
+    s1, r1, i1 = k6.costas_block_planes(params, st, xr[:cut], xi[:cut])
+    s2, r2, i2 = k6.costas_block_planes(params, s1, xr[cut:], xi[cut:])
+    sw, rw, iw = k6.costas_block_planes(params, st, xr, xi)
+    require(torch.equal(torch.cat([r1, r2]), rw)
+            and torch.equal(torch.cat([i1, i2]), iw)
+            and torch.equal(s2.last_phase, sw.last_phase)
+            and torch.equal(s2.f_dev, sw.f_dev),
+            "K6: two halves split at a multiple of the chunk differ from "
+            "the whole")
+    log(f"K6 vs plain: random planes {cases}, adversarial at chunks 32 and "
+        f"512 (error clip saturated; states past both f_dev clamps and at "
+        f"phase 0 with f_dev < 0), two halves split at {cut} == the whole: "
+        f"max|diff|={worst}")
+    return worst
+
+
+def costas_capture(chain, n_blocks: int):
+    """BENCH_SUITE's costas_chain_device input (random int16 IQ within
+    +-8,000), ``n_blocks`` blocks after the carry."""
+    import numpy as np
+
+    block = COSTAS_BLOCK // chain.block_quantum * chain.block_quantum
+    return np.random.default_rng(0).integers(
+        -8000, 8000, size=(chain.carry_len + n_blocks * block, 2),
+        dtype=np.int64).astype(np.int16), block
+
+
+def costas_run(chain, iq, block: int):
+    """The chain over the capture's blocks, state carried: the output
+    [C, K, 2] int16 on the card and the final state."""
+    import torch
+
+    st = chain.init_state(prefix=iq[:chain.carry_len])
+    outs = []
+    for lo in range(chain.carry_len, iq.shape[0], block):
+        st, out = chain.step(st, iq[lo:lo + block])
+        outs.append(out)
+    return torch.cat(outs, 1), st
+
+
+def lock_capture(n: int):
+    """tests/test_costas_channel.py's BPSK capture (256 ksps, 2 ksym/s, a
+    35 Hz carrier error, noise) widened to 8 channels at LOCK_OFFSETS."""
+    import numpy as np
+
+    rng = np.random.default_rng(33)
+    t = np.arange(n) / LOCK_FS
+    iq = np.zeros((n, 2))
+    for off in LOCK_OFFSETS:
+        sym = rng.choice([-1.0, 1.0], size=n // 128 + 2)
+        bb = np.repeat(sym, 128)[:n]
+        ph = 2 * np.pi * (off + 35.0) * t
+        iq += np.stack([np.cos(ph) * bb, np.sin(ph) * bb], -1) * 3000
+    return (iq + rng.normal(scale=60, size=iq.shape)).astype(np.int16)
+
+
+def lock_verdicts(out) -> list:
+    """tests/test_costas_channel.py's lock test on each channel of
+    [C, K, 2]: (real-rail power / imaginary-rail power in the tail, mean
+    |re| in the tail)."""
+    import numpy as np
+
+    res = []
+    for ch in np.asarray(out, np.float64):
+        tail = ch[ch.shape[0] // 2:]
+        res.append((float(np.mean(tail[:, 0] ** 2)
+                          / max(np.mean(tail[:, 1] ** 2), 1e-9)),
+                    float(np.mean(np.abs(tail[:, 0])))))
+    return res
+
+
+def check_lock(device, totals: dict) -> dict:
+    """Phase 18 (c): the 8-channel BPSK capture on the card's step path
+    and on process_array_native; every channel must lock on both (real
+    rail > 20 x imaginary rail, mean |re| > 1000 in the tail)."""
+    from tsl_sdr_tpu_torch.models.costas_channel import CostasChannelizer
+    from tsl_sdr_tpu_torch.utils.filter_design import firdes_low_pass
+
+    n = LOCK_FS
+    iq = lock_capture(n)
+    chain = CostasChannelizer(firdes_low_pass(1.0, LOCK_FS, 6_000, 4_000),
+                              LOCK_OFFSETS, LOCK_FS, 8, alpha=0.1,
+                              beta=0.005, e_max_q14=8192, device=device)
+    q = chain.block_quantum
+    block = (n - chain.carry_len) // 4 // q * q
+    iq = iq[:chain.carry_len + 4 * block]
+
+    def step_path():
+        return costas_run(chain, iq, block)[0].cpu().numpy()
+
+    res = {}
+    for tier, fn, kernels in (
+            ("step", step_path, ("exact_fir", "costas_chunks")),
+            ("native", lambda: chain.process_array_native(iq, block),
+             ("exact_fir",))):
+        out = on_path(f"the Costas lock capture ({tier})", kernels, fn,
+                      totals)
+        v = lock_verdicts(out)
+        res[tier] = v
+        bad = [i for i, (ratio, mag) in enumerate(v)
+               if not (ratio > 20 and mag > 1000)]
+        require(not bad, f"Costas {tier}: channels {bad} did not lock: {v}")
+        log(f"Costas lock ({tier}): all 8 channels locked; re/im power "
+            f"{[round(r, 1) for r, _ in v]}, mean |re| "
+            f"{[round(m) for _, m in v]}")
+    return res
+
+
+def costas_chain_latency(device, n: int, turns: int = 1 << 16) -> dict:
+    """K6's bound a chunk: one turn of its dependent chain on one warp,
+    alone on registers (``bench/costas_chain_probe.cu``, ``turns`` turns
+    of ``n`` samples), beside the opcodes of the probe's loop from its
+    SASS."""
+    res, ops, count = chain_probe(device, "costas_chain_probe", turns, n)
+    res["sass_instructions"] = count
+    res["sass_ops"] = dict(sorted(ops.items(), key=lambda kv: -kv[1])[:12])
+    log(f"K6 chain: {res['cycles_per_turn']:.1f} cycles = "
+        f"{res['ns_per_turn']:.2f} ns a chunk turn of {n} samples ({turns} "
+        f"turns alone on registers; {res['probe_ghz']:.3f} GHz in the "
+        f"probe, nvidia-smi clocks.sm {res['smi_sm_mhz']:.0f} MHz); the "
+        f"probe's {count} SASS instructions, most frequent "
+        f"{res['sass_ops']}")
+    return res
+
+
+def costas_phase(device, totals: dict) -> dict:
+    """Phase 18: the Costas coherent chain at BENCH_SUITE's
+    costas_chain_device settings: K6 against its plain version, the chain
+    over several blocks against the plain-version run, lock on both tiers,
+    and times."""
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import costas as k6
+
+    chain = costas_bench_chain(device)
+    plan = chain.packed_plan
+    iq, block = costas_capture(chain, COSTAS_BLOCKS)
+    log(f"Costas chain: {chain.nr_channels} channels, plan ROW {plan.row}, "
+        f"cr_rows {plan.cr_rows}, opr {plan.opr}, quantum "
+        f"{chain.block_quantum}, carry {chain.carry_len}, grouped "
+        f"{chain.taps.grouped}; chunk {k6.stable_chunk(chain.params)}; "
+        f"{COSTAS_BLOCKS} blocks of {block} samples")
+    err = check_costas(chain, iq, block, device)
+
+    # (b) the chain end to end, against the run with every kernel swapped
+    # for its plain version
+    t0 = time.perf_counter()
+    got, st_k = on_path("the Costas chain", ("exact_fir", "costas_chunks"),
+                        lambda: costas_run(chain, iq, block), totals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with plain_kernels():
+        want, st_p = costas_run(chain, iq, block)
+    plain_wall = time.perf_counter() - t0
+    require(got.shape == (chain.nr_channels, COSTAS_BLOCKS * block // 8, 2)
+            and got.dtype == torch.int16, f"Costas chain output {got.shape}")
+    require(torch.equal(got, want)
+            and torch.equal(st_k.costas.last_phase, st_p.costas.last_phase)
+            and torch.equal(st_k.costas.f_dev, st_p.costas.f_dev),
+            f"Costas chain: the output differs from the plain-version run "
+            f"in {int((got != want).sum())} values")
+    log(f"Costas chain: {COSTAS_BLOCKS} blocks, state carried: int16 output "
+        f"{list(got.shape)} and state equal to the plain-version run "
+        f"({wall:.3f} s with the kernels, {plain_wall:.1f} s plain)")
+    del got, want
+
+    res = {"lock": check_lock(device, totals)}
+
+    # (d) times: K6 at the slice's block in turns with its plain version
+    xr, xi = slice_planes(chain, iq, block, device)
+    st = k6.init_costas_state(chain.params, chain.nr_channels, device)
+    chunk = k6.stable_chunk(chain.params)
+    k6_t = kernel_times(
+        lambda: k6.costas_block_planes_plain(chain.params, st, xr, xi),
+        lambda: k6.costas_block_planes(chain.params, st, xr, xi), 1, 20,
+        plain_on_host=True)
+    chunks = -(-xr.shape[0] // chunk)
+    lat = costas_chain_latency(device, chunk)
+    # a latency: the block's chunks, one dependent chain turn each (the
+    # channels run side by side); the bytes: xr, xi in, o_re, o_im out
+    t_lat = chunks * lat["ns_per_turn"] * 1e-6
+    t_bytes = 4 * nbytes(xr) / HBM_BYTES * 1e3
+    k6_t["bound_ms"] = max(t_lat, t_bytes)
+    k6_t["bound_by"], k6_t["bound_kind"] = "operations", "latency"
+    k6_t["chain"] = lat
+    k6_t["bytes_ms"] = t_bytes
+    log(f"K6 slice block ({xr.shape[0]} x {xr.shape[1]}, {chunks} chunks): "
+        f"kernel {k6_t['ms']:.4f} ms (call {k6_t['call_ms']:.4f}), plain "
+        f"{k6_t['plain_ms']:.1f} ms (a Python loop of chunks), bound "
+        f"{k6_t['bound_ms']:.4f} ms (latency: {chunks} turns of "
+        f"{lat['cycles_per_turn']:.1f} cycles; bytes alone {t_bytes:.4f} ms), "
+        f"{k6_t['bound_ms'] / k6_t['ms']:.1%} of it; no library call (torch "
+        f"has no scan)")
+
+    # the chain's wall a block (CUDA events around one step, after
+    # warm-up), 8 trials
+    st0 = chain.init_state(prefix=iq[:chain.carry_len])
+    blk = torch.from_numpy(iq[chain.carry_len:chain.carry_len + block]
+                           .copy()).to(device)
+    chain.step(st0, blk)
+    trials = sorted(time_ms(lambda: chain.step(st0, blk), 1)
+                    for _ in range(8))
+    med = (trials[3] + trials[4]) / 2
+    res["chain"] = {"block": block, "trials_ms": trials, "median_ms": med,
+                    "msps": block / med / 1e3}
+    log(f"Costas chain a {block}-sample block (8 trials, device input): "
+        f"median {med:.3f} ms, spread {trials[0]:.3f}-{trials[-1]:.3f} ms, "
+        f"{block / med / 1e3:.1f} Msps wideband")
+    walls = []
+    n_native = chain.carry_len + COSTAS_BLOCKS * block
+    for _ in range(3):
+        t0 = time.perf_counter()
+        chain.process_array_native(iq[:n_native], block)
+        walls.append(time.perf_counter() - t0)
+    walls.sort()
+    res["native"] = {"samples": COSTAS_BLOCKS * block, "walls_s": walls,
+                     "msps": COSTAS_BLOCKS * block / walls[1] / 1e6}
+    log(f"Costas native path (K5 + NCO on the card, the serial loop in C a "
+        f"channel): {COSTAS_BLOCKS * block} samples in {walls[1]:.3f} s "
+        f"(median of 3, {walls[0]:.3f}-{walls[2]:.3f}), "
+        f"{res['native']['msps']:.1f} Msps wideband")
+    res["k6"] = k6_t
+    res["kernel"] = {"name": "costas_chunks", "route": "cuda",
+                     "source": "tsl_sdr_tpu_torch/csrc/costas.cu",
+                     "replaces": "tsl_sdr_tpu/ops/costas.py:94",
+                     "max_abs_err": err, **k6_t}
+    return res
+
+
 def smoke(device: str) -> dict:
-    """Phases 2-17 on ``device``; returns the kernels' summary."""
+    """Phases 2-18 on ``device``; returns the kernels' summary."""
     import torch
 
     from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
@@ -2458,6 +2828,7 @@ def smoke(device: str) -> dict:
     wide_k = wide["kernels"]
 
     front = front_end(device, totals)
+    costas = costas_phase(device, totals)
     k3_f32 = k3_times["pipeline 5/12"]
     k3_q14 = k3_times["192/125 decoder step"]
     return {
@@ -2468,6 +2839,7 @@ def smoke(device: str) -> dict:
         "front": front["runs"],
         "k3": k3_times,
         "k4": front["k4"],
+        "costas": costas,
         "kernels": [
             {"name": "chain_fm", "route": "cuda",
              "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
@@ -2495,6 +2867,7 @@ def smoke(device: str) -> dict:
              "source": "tsl_sdr_tpu_torch/csrc/bank.cu",
              "replaces": "tsl_sdr_tpu/ops/packed_fir.py:286",
              "max_abs_err": wide_k["err"], **wide_k[256]["exact_fir_raw"]},
+            costas["kernel"],
         ],
         "launches": totals,
     }
@@ -2587,6 +2960,15 @@ def main() -> int:
     for nr_ch in WIDE_CHANNELS:
         for name, r in summary["wide"]["kernels"][nr_ch].items():
             log(f"{card} | {name} at {nr_ch} channels: {json.dumps(r)}")
+    costas = summary["costas"]
+    log(f"{card} | Costas chain ({costas['chain']['block']}-sample blocks, "
+        f"8 channels): median {costas['chain']['median_ms']:.3f} ms a block, "
+        f"{costas['chain']['msps']:.1f} Msps wideband; trials ms "
+        f"{costas['chain']['trials_ms']}")
+    log(f"{card} | Costas native path: {json.dumps(costas['native'])}")
+    log(f"{card} | Costas lock (re/im power, mean |re|) by channel: "
+        f"{json.dumps(costas['lock'])}")
+    log(f"{card} | K6 slice block: {json.dumps(costas['k6'])}")
     for kernel in ("k3", "k4"):
         for name, k in summary[kernel].items():
             log(f"{card} | {kernel.upper()} {name}: {json.dumps(k)}")

@@ -20,7 +20,11 @@ EXACTLY equal in both epilogues (wrapping int32 sums, then the integer
 rounding or nothing), and the exact channelizer's PCM on the card equal to
 the CPU's byte for byte; K1 and K5 on wide banks (grouped operands, channel
 blocks at 256 and 232 channels) EXACTLY equal, the FM stage's PCM and
-carry included.
+carry included; K6 (the chunked Costas loop) EXACTLY equal, outputs and
+state (its float ops are written with _rn intrinsics in the plain
+version's order and its sums in the plain version's tree), and the Costas
+chain's int16 output equal to the run with every kernel swapped for its
+plain version.
 """
 
 import dataclasses
@@ -31,7 +35,10 @@ import pytest
 import torch
 
 from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
+from tsl_sdr_tpu_torch.models import costas_channel
 from tsl_sdr_tpu_torch.ops import chain as k1
+from tsl_sdr_tpu_torch.ops import costas as k6
+from tsl_sdr_tpu_torch.ops import exact_fir as k5
 from tsl_sdr_tpu_torch.ops import dc_blocker
 from tsl_sdr_tpu_torch.ops import frame_resampler as k4
 from tsl_sdr_tpu_torch.ops import polyphase, q14
@@ -550,3 +557,138 @@ def test_exact_chain_on_the_card_equals_cpu(cuda):
             for dev in (cuda, "cpu")]
     assert outs[0].shape == outs[1].shape and outs[0].size > 0
     np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def _costas_planes(k, c, seed, scale=0.4):
+    rng = np.random.default_rng(seed)
+    xr = rng.normal(scale=scale, size=(k, c)).astype(np.float32)
+    xi = rng.normal(scale=scale, size=(k, c)).astype(np.float32)
+    ph = rng.uniform(0, 2 * np.pi, size=c).astype(np.float32)
+    fd = rng.uniform(-0.05, 0.05, size=c).astype(np.float32)
+    return [torch.from_numpy(a) for a in (xr, xi, ph, fd)]
+
+
+def _costas_both(params, planes, chunk, device):
+    """K6 and its plain version on the card from the same inputs."""
+    xr, xi, ph, fd = (t.to(device) for t in planes)
+    outs = []
+    for fn in (k6.costas_block_planes, k6.costas_block_planes_plain):
+        st = k6.CostasState(ph.clone(), fd.clone())
+        st2, o_re, o_im = fn(params, st, xr, xi, chunk)
+        outs.append((o_re, o_im, st2.last_phase, st2.f_dev))
+    return outs
+
+
+def _assert_costas_equal(outs):
+    for got, want in zip(*outs):
+        assert got.shape == want.shape
+        assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("k,c,chunk", [(250_000, 8, None), (3 * 32 + 17, 1, 32),
+                                       (40 * 32 + 5, 33, 32),
+                                       (3 * 512 + 100, 1, 512),
+                                       (2 * 512 + 7, 33, 512),
+                                       (5 * 100 + 1, 4, 100), (9, 2, 22)])
+def test_costas_kernel_matches_plain(cuda, k, c, chunk):
+    """K6 against its plain version on the card: the slice's shape (8
+    channels, K = 250,000, auto chunk 22 with its remainder of 14), chunks
+    of 32, 100 and 512 (up to 16 samples a lane) at 1, 4 and 33 channels,
+    a call shorter than one chunk: outputs and state exactly equal."""
+    params = k6.make_costas_params(0.0, 0.05, 0.002, 8192)
+    before = k6.costas_block_planes.launches
+    _assert_costas_equal(_costas_both(params, _costas_planes(k, c, k + c),
+                                      chunk, cuda))
+    assert k6.costas_block_planes.launches == before + 1
+
+
+@pytest.mark.parametrize("chunk", [32, 512])
+def test_costas_kernel_adversarial(cuda, chunk):
+    """Full-scale input past the error clip, gains far past stable so
+    f_dev sits on both clamps, phases through zero and 2*pi: exactly
+    equal."""
+    params = k6.make_costas_params(1e-3, 0.5, 0.05, 8192)
+    k, c = 6 * chunk + 3, 6
+    t = np.arange(k, dtype=np.float64)[:, None]
+    rot = np.array([0.9, -0.9, 2.5, -2.5, 0.0, 3.1])[None, :]
+    planes = [torch.from_numpy((1.99 * f(rot * t)).astype(np.float32))
+              for f in (np.cos, np.sin)]
+    planes += [torch.tensor([0.0, 6.2831, 1e-7, 3.0, 6.28318, 0.5]),
+               torch.tensor([-0.3, 0.3, 0.0, -0.29, 0.31, -0.31])]
+    outs = _costas_both(params, planes, chunk, cuda)
+    _assert_costas_equal(outs)
+    assert (outs[0][0] * outs[0][1]).abs().max() > params.e_max
+
+
+def test_costas_kernel_halves_equal_whole(cuda):
+    """Two calls split at a multiple of the chunk equal one call."""
+    params = k6.make_costas_params(0.0, 0.05, 0.002, 8192)
+    xr, xi, ph, fd = (t.to(cuda) for t in _costas_planes(22 * 1000 + 9, 8,
+                                                         3))
+    st = k6.CostasState(ph, fd)
+    s1, r1, i1 = k6.costas_block_planes(params, st, xr[:22 * 400],
+                                        xi[:22 * 400])
+    s2, r2, i2 = k6.costas_block_planes(params, s1, xr[22 * 400:],
+                                        xi[22 * 400:])
+    sw, rw, iw = k6.costas_block_planes(params, st, xr, xi)
+    assert torch.equal(torch.cat([r1, r2]), rw)
+    assert torch.equal(torch.cat([i1, i2]), iw)
+    assert torch.equal(s2.last_phase, sw.last_phase)
+    assert torch.equal(s2.f_dev, sw.f_dev)
+
+
+def test_costas_chain_on_the_card_equals_plain(cuda, monkeypatch):
+    """CostasChannelizer at BENCH_SUITE's costas_chain_device settings (8
+    channels, 1 Msps, decimation 8, 64 taps) over three blocks, state
+    carried: K5 and K6 launch, and the int16 output equals the run with
+    both swapped for their plain versions."""
+    from tsl_sdr_tpu_torch.utils.filter_design import firdes_low_pass
+
+    fs = 1_000_000
+    lpf = firdes_low_pass(1.0, fs, 40_000, 20_000)[:64]
+    rng = np.random.default_rng(0)
+    offsets = rng.integers(-fs // 3, fs // 3, size=8)
+    chain = costas_channel.CostasChannelizer(lpf, offsets, fs, 8,
+                                             device=cuda)
+    n = 200_000 // chain.block_quantum * chain.block_quantum
+    iq = _iq(chain.carry_len + 3 * n, 21)
+
+    def run():
+        st = chain.init_state(prefix=iq[:chain.carry_len])
+        outs = []
+        for b in range(3):
+            lo = chain.carry_len + b * n
+            st, out = chain.step(st, iq[lo:lo + n])
+            outs.append(out)
+        return torch.cat(outs, 1), st
+
+    fir, loop = k5.exact_fir, k6.costas_block_planes
+    n5, n6 = fir.launches, loop.launches
+    got, st_k = run()
+    assert fir.launches == n5 + 3
+    assert loop.launches == n6 + 3
+    monkeypatch.setattr(costas_channel, "exact_fir", k5.exact_fir_plain)
+    monkeypatch.setattr(k6, "costas_block_planes",
+                        k6.costas_block_planes_plain)
+    want, st_p = run()
+    assert (fir.launches, loop.launches) == (n5 + 3, n6 + 3)
+    assert got.shape == (8, 3 * n // 8, 2) and got.dtype == torch.int16
+    assert torch.equal(got, want)
+    assert torch.equal(st_k.costas.last_phase, st_p.costas.last_phase)
+
+
+def test_costas_wrapper_raises_on_bad_input(cuda):
+    """No fallback: a bad plane or state raises before any launch."""
+    params = k6.make_costas_params(0.0, 0.05, 0.002, 8192)
+    st = k6.init_costas_state(params, 4, cuda)
+    x = torch.zeros((64, 4), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        k6.costas_block_planes(params, st, x.double(), x)
+    with pytest.raises(ValueError, match="last_phase"):
+        k6.costas_block_planes(params, k6.init_costas_state(params, 3, cuda),
+                               x, x)
+    with pytest.raises(ValueError, match="chunk"):
+        k6.costas_block_planes(params, st, x, x, chunk=513)
+    with pytest.raises(ValueError, match="on cpu"):
+        k6.costas_block_planes(params, k6.init_costas_state(params, 4, "cpu"),
+                               x, x)

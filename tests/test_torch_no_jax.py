@@ -8,8 +8,9 @@ second one runs ``decoder-torch`` (a 25/16 frame-form POCSAG input, exact
 tier, ``-b``) and ``resampler-torch``, a third ``pipeline-torch --follow``
 on a FIFO, a fourth ``multifm-torch --exact`` (both I/O runtimes) and
 ``pipeline-torch --exact`` on a POCSAG + AIS capture made with the port's
-own generators. No file of the port, and not ``chip_smoke.py``, imports
-either package.
+own generators, a fifth the Costas coherent chain (both tiers lock on a
+BPSK channel) and Mueller-Muller clock recovery. No file of the port, and
+not ``chip_smoke.py``, imports either package.
 """
 
 import os
@@ -192,6 +193,42 @@ print("NO-JAX EXACT OK")
 """
 
 
+_COSTAS_SCRIPT = _BLOCK + r"""
+import numpy as np
+import torch
+import tsl_sdr_tpu_torch
+from tsl_sdr_tpu_torch.ops import costas
+from tsl_sdr_tpu_torch.ops.mueller_muller import MuellerMuller
+from tsl_sdr_tpu_torch.utils.filter_design import firdes_low_pass
+
+fs, d, n = 256_000, 8, 64_000
+rng = np.random.default_rng(33)
+sym = rng.choice([-1.0, 1.0], size=n // 128 + 2)
+bb = np.repeat(sym, 128)[:n]
+ph = 2 * np.pi * (40_000 + 35.0) * np.arange(n) / fs
+iq = (np.stack([np.cos(ph) * bb, np.sin(ph) * bb], -1) * 9000
+      + rng.normal(scale=60, size=(n, 2))).astype(np.int16)
+chain = tsl_sdr_tpu_torch.CostasChannelizer(
+    firdes_low_pass(1.0, fs, 6_000, 4_000), [40_000], fs, d, alpha=0.1,
+    beta=0.005, device="cpu")
+q = chain.block_quantum
+k = (n - chain.carry_len) // q * q
+st, out = chain.step(chain.init_state(prefix=iq[:chain.carry_len]),
+                     iq[chain.carry_len:chain.carry_len + k])
+native = chain.process_array_native(iq, block_size=8_192)
+for res in (out.numpy()[0], native[0]):
+    tail = res[res.shape[0] // 2:].astype(np.float64)
+    assert np.mean(tail[:, 0] ** 2) > 20 * np.mean(tail[:, 1] ** 2)
+rail = out.numpy()[0, :, 0]
+dec = MuellerMuller(kw=1e-4, km=4e-6, samples_per_bit=16.0,
+                    error_min=15.0, error_max=17.0).process(rail)
+assert abs(len(dec) - len(rail) / 16) < 16, len(dec)
+assert costas.costas_block_planes.launches == 0
+""" + _CHECK + r"""
+print("NO-JAX COSTAS OK")
+"""
+
+
 def _run_no_jax(script: str, token: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -216,6 +253,10 @@ def test_exact_tier_clis_run_without_jax():
     _run_no_jax(_EXACT_SCRIPT, "NO-JAX EXACT OK")
 
 
+def test_costas_chain_runs_without_jax():
+    _run_no_jax(_COSTAS_SCRIPT, "NO-JAX COSTAS OK")
+
+
 def test_no_port_file_imports_jax():
     """No ``import``/``from`` of jax, jaxlib, ml_dtypes or ``tsl_sdr_tpu``
     (``tsl_sdr_tpu_torch`` is the port itself)."""
@@ -225,5 +266,10 @@ def test_no_port_file_imports_jax():
     files = sorted((ROOT / "tsl_sdr_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"tsl_sdr_tpu_torch/ops/costas.py",
+            "tsl_sdr_tpu_torch/ops/mueller_muller.py",
+            "tsl_sdr_tpu_torch/models/costas_channel.py",
+            "tsl_sdr_tpu_torch/runtime/native.py"} <= names
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders

@@ -11,9 +11,11 @@ counterpart's path (``ops/packed_fir.py`` here ports
                 split that puts K1's and K3's products on the tensor cores
                 (``ops.imma_split``), the DC blocker (its exact tier a CUDA
                 kernel too), sync prefilters, plus the numpy plan builders.
-* ``models``  — ``MultifmChain`` (production tier), the streaming
-                ``ReceivePipeline``, the decoders' ``ResamplerChain``, and
-                the POCSAG/FLEX/AIS decoders and BCH.
+* ``models``  — ``MultifmChain`` (both tiers), the streaming
+                ``ReceivePipeline``, the decoders' ``ResamplerChain``, the
+                coherent ``CostasChannelizer`` (CUDA kernel K6, the chunked
+                Costas loop, ``ops.costas``), and the POCSAG/FLEX/AIS
+                decoders and BCH.
 * ``native``  — the decoders' C++ state machines (``tslstream.cc``).
 * ``runtime`` — ``PushResampler`` and the CLIs' streaming helpers;
                 ``runtime.native`` builds ``native/`` with g++ at first use.
@@ -31,3 +33,13 @@ copy, under the same module name.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """``CostasChannelizer`` at top level, as the JAX package exports it,
+    imported at first use (importing the package loads no model)."""
+    if name == "CostasChannelizer":
+        from tsl_sdr_tpu_torch.models.costas_channel import CostasChannelizer
+
+        return CostasChannelizer
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures: every pointer (and the stream) as c_void_p — ctypes would
 # otherwise pass a Python int as a 32-bit int and cut the pointer
 SIGNATURES = {
@@ -45,6 +46,8 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _L, _I, _I,
                            _I, _I, _I, _P],
     "tsl_dc_block_exact": [_P, _P, _P, _L, _I, _I, _P],
+    "tsl_costas_chunks": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
+                          _F, _F, _F, _F, _F, _P],
 }
 
 _lock = threading.Lock()

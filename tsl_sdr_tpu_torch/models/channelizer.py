@@ -76,6 +76,26 @@ def upload(arr: np.ndarray, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def capture_blocks(iq, block_size: int, quantum: int, carry_len: int):
+    """(prefix or None, blocks): an [n, 2] int16 capture cut as the JAX
+    package cuts it — the first ``carry_len`` samples as the prefix, full
+    ``block_size`` blocks, then the sub-block tail as one shorter block;
+    only the residue below one ``quantum`` falls off."""
+    iq = np.asarray(iq, dtype=np.int16)
+    usable = (iq.shape[0] - carry_len) // quantum * quantum
+    if usable <= 0:
+        raise ValueError("capture shorter than one block quantum")
+    block_size = min(block_size - block_size % quantum, usable)
+    if block_size <= 0:
+        block_size = usable
+    n_blocks = usable // block_size
+    bounds = [carry_len + j * block_size for j in range(n_blocks + 1)]
+    if usable > n_blocks * block_size:
+        bounds.append(carry_len + usable)
+    blocks = [iq[lo:hi] for lo, hi in zip(bounds, bounds[1:])]
+    return (iq[:carry_len] if carry_len else None), blocks
+
+
 class HostCopy:
     """A device->host copy started now and waited for at :meth:`numpy`:
     into pinned memory with ``non_blocking=True`` and a CUDA event on the
@@ -306,24 +326,8 @@ class MultifmChain:
     # -- whole-array API ----------------------------------------------------
 
     def _blocks(self, iq, block_size: int):
-        """(prefix or None, blocks): the capture cut as the JAX package
-        cuts it — full ``block_size`` blocks, then the sub-block tail as
-        one shorter block; only the residue below one quantum falls off."""
-        iq = np.asarray(iq, dtype=np.int16)
-        q = self.block_quantum
-        c_len = self.carry_len
-        usable = (iq.shape[0] - c_len) // q * q
-        if usable <= 0:
-            raise ValueError("capture shorter than one block quantum")
-        block_size = min(block_size - block_size % q, usable)
-        if block_size <= 0:
-            block_size = usable
-        n_blocks = usable // block_size
-        bounds = [c_len + j * block_size for j in range(n_blocks + 1)]
-        if usable > n_blocks * block_size:
-            bounds.append(c_len + usable)
-        blocks = [iq[lo:hi] for lo, hi in zip(bounds, bounds[1:])]
-        return (iq[:c_len] if c_len else None), blocks
+        return capture_blocks(iq, block_size, self.block_quantum,
+                              self.carry_len)
 
     def process_array_exact_packed(self, iq, block_size: int = 4_194_304):
         """Bit-exact capture processing: pcm [C, K_total] int16, the same

@@ -3,11 +3,11 @@
 The port's copy of ``tsl_sdr_tpu/runtime/native.py:129-458``: the decoders'
 sample state machines (:class:`PocsagNative`, :class:`FlexNative`,
 :class:`AisNative`), the batch BCH(31,21) corrector, the bit-exact tier's
-serial Q.14 rotator (:func:`rotator_seq`), and the threaded file/FIFO
-source and EPIPE-tolerant sink of ``multifm-torch``'s native runtime
+serial Q.14 rotator (:func:`rotator_seq`), the serial Costas loop
+(:func:`costas_native`), and the threaded file/FIFO source and
+EPIPE-tolerant sink of ``multifm-torch``'s native runtime
 (:class:`NativeSource`, :class:`NativeSink`). The source is the JAX
-package's, copied whole; its Costas loop is built too and bound when a
-ported stage needs it.
+package's, copied whole.
 
 The library is built with ``g++`` at first use into
 ``build/tsl_sdr_tpu_torch/`` beside the package, under a name keyed on a
@@ -46,6 +46,8 @@ _U8P = ctypes.POINTER(ctypes.c_uint8)
 _U32P = ctypes.POINTER(ctypes.c_uint32)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U64P = ctypes.POINTER(ctypes.c_uint64)
+_F32 = ctypes.c_float
+_F32P = ctypes.POINTER(ctypes.c_float)
 # name -> (restype, argtypes)
 SIGNATURES = {
     "tsl_bch3121_decode": (None, [_U32P, ctypes.c_long, _U32P, _U8P]),
@@ -68,6 +70,8 @@ SIGNATURES = {
     "tsl_ais_state": (ctypes.c_int, [_P]),
     "tsl_ais_on_pcm": (ctypes.c_long, [_P, _I16P, _SZ, _U8P, _SZ]),
     "tsl_rotator_seq": (None, [_I16P, _I32P, _SZ, _SZ, _I16P]),
+    "tsl_costas": (None, [_I16P, _SZ, _F32, _F32, _F32, _F32, _F32, _F32P,
+                          _I16P]),
     "tsl_source_new": (_P, [ctypes.c_char_p, ctypes.c_int, _SZ, _SZ,
                             ctypes.c_double, ctypes.c_int]),
     "tsl_source_start": (ctypes.c_int, [_P]),
@@ -337,6 +341,29 @@ def rotator_seq(rot: np.ndarray, incr: np.ndarray, n: int) -> np.ndarray:
     lib.tsl_rotator_seq(rot.ctypes.data_as(_I16P), incr.ctypes.data_as(_I32P),
                         c, n, out.ctypes.data_as(_I16P))
     return out
+
+
+def costas_native(x: np.ndarray, params, state=None):
+    """The reference's serial Costas loop, one sample at a time in C
+    (``multifm/costas_demod.c:56-115``; semantics in
+    :mod:`tsl_sdr_tpu_torch.ops.costas`).
+
+    x: [N, 2] int16 IQ; params: ``CostasParams``; state: optional (phase,
+    f_dev) floats. Returns (out [N, 2] int16, (phase, f_dev)).
+    """
+    lib = load()
+    x = np.ascontiguousarray(x, np.int16)
+    if x.ndim != 2 or x.shape[1] != 2:
+        raise ValueError(f"x: expected [N, 2] int16, got {list(x.shape)}")
+    out = np.empty_like(x)
+    st = np.asarray(
+        [0.0, params.f_dev_nominal] if state is None else list(state),
+        dtype=np.float32)
+    lib.tsl_costas(x.ctypes.data_as(_I16P), x.shape[0], params.alpha,
+                   params.beta, params.e_max, params.f_dev_min,
+                   params.f_dev_max, st.ctypes.data_as(_F32P),
+                   out.ctypes.data_as(_I16P))
+    return out, (float(st[0]), float(st[1]))
 
 
 class NativeSource:

@@ -14,7 +14,9 @@ pipeline's ``s["st"]`` tree on the XLA tier:
 so a JAX pipeline's state converts one to one into the port's and back, and
 both pipelines can start from the same mid-stream state. The bit-exact
 tier's ``ExactPackedState(carry, rot, fm_last)`` converts the same way
-(the rotator stays a host array in both packages). The JAX side's
+(the rotator stays a host array in both packages), and so does the
+Costas chain's ``CostasChainState(carry_vals, out_index, costas=
+CostasState(last_phase, f_dev))``. The JAX side's
 leaves are read through ``np.asarray`` and its tuple types come from the
 caller (the JAX plan class, or a JAX state tree used as a template), so this
 module never imports the JAX package's jax modules.
@@ -27,7 +29,9 @@ import torch
 
 from tsl_sdr_tpu_torch.models.channelizer import (ExactPackedState,
                                                    MultifmFastState)
+from tsl_sdr_tpu_torch.models.costas_channel import CostasChainState
 from tsl_sdr_tpu_torch.models.resampler import ResamplerChainState
+from tsl_sdr_tpu_torch.ops.costas import CostasState
 from tsl_sdr_tpu_torch.ops.dc_blocker import DcBlockerState
 from tsl_sdr_tpu_torch.ops.packed_fir import GroupedFirPlan, PackedFirPlan
 from tsl_sdr_tpu_torch.ops.polyphase import ResamplerPlan
@@ -130,3 +134,27 @@ def exact_state_to_jax(st: ExactPackedState, like):
     return type(like)(carry=st.carry.detach().cpu().numpy().copy(),
                       rot=np.array(st.rot, dtype=np.int16),
                       fm_last=st.fm_last.detach().cpu().numpy().copy())
+
+
+def costas_state_from_jax(st, *, device="cpu") -> CostasChainState:
+    """A JAX ``CostasChainState`` (carry int16, ``out_index`` int32,
+    ``last_phase``/``f_dev`` float32 ``[C]``) -> the port's, on
+    ``device``."""
+    return CostasChainState(
+        carry_vals=_t(st.carry_vals, device, np.int16),
+        out_index=int(np.asarray(st.out_index)),
+        costas=CostasState(last_phase=_t(st.costas.last_phase, device,
+                                         np.float32),
+                           f_dev=_t(st.costas.f_dev, device, np.float32)))
+
+
+def costas_state_to_jax(st: CostasChainState, like):
+    """The port's Costas chain state -> a JAX ``CostasChainState`` of numpy
+    leaves, with the tuple types of ``like`` (a JAX chain state)."""
+    def n(t):
+        return t.detach().cpu().numpy().copy()
+
+    return type(like)(
+        carry_vals=n(st.carry_vals), out_index=np.int32(st.out_index),
+        costas=type(like.costas)(last_phase=n(st.costas.last_phase),
+                                 f_dev=n(st.costas.f_dev)))
