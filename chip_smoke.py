@@ -135,10 +135,30 @@ row):
    ``process_array_native`` (the serial loop in C); (d) K6's device time in
    turns with its plain version beside its latency bound (its chunks times
    one turn of its chain, ``bench/costas_chain_probe.cu``), the chain's
-   wall a block (8 trials) and the native path's Msps.
+   wall a block (8 trials) and the native path's Msps;
+19. the mesh and multi-process paths (``tsl_sdr_tpu_torch/parallel``) on
+   meshes whose every entry is cuda:0 (the one card standing in for
+   several; no scaling figure comes from it): (a) the sharded channelizer
+   at the pager's plan and block on (1, 1), (2, 2), (4, 1) and (1, 8) and
+   at BENCH_SUITE's 64-channel bank on (2, 2), each equal to one K1 launch
+   over the whole capture, K1 launched once a (time span, channel shard);
+   (b) the sharded resampler at 16/25 over 4 shards on a packed-row (K3)
+   and a residue (K4) length, equal to the single-device run; (c)
+   ``ReceivePipeline(mesh=)`` at the pager deployment on phase 4's
+   capture (rtl_u8 push/flush) on the same four meshes: phase 4's
+   messages, the ``fetched`` counters of the run without a mesh, K1
+   launched blocks x spans x shards times; with the FLEX channels as
+   ``pcm`` (one DC-blocked) on (2, 2) and (4, 1), PCM equal to the run
+   without a mesh; the decimation-50 band on (2, 1); (d) ``pipeline-torch
+   --time-shards 2`` exits 2 with the device-count message; (e)
+   ``pipeline-torch --distributed`` as two processes on cuda:0 (gloo):
+   rank 0 writes phase 4's messages, rank 1 nothing, each rank's upload
+   and halo bytes a block; (f) the pager pipeline's wall a block without a
+   mesh, on (1, 1) and on (2, 2), in turns, 6 trials each: the sharding's
+   overhead on one card.
 
-Each path of phases 4, 8, 9, 10, 14, 15, 16, 17 and 18 and each run of
-phase 12 runs with the
+Each path of phases 4, 8, 9, 10, 14, 15, 16, 17, 18 and 19 and each run
+of phase 12 runs with the
 kernels' launch counts set to 0 just before it and read just after; a
 kernel of the path that never launched fails the run. jax, jaxlib and
 the JAX package (``tsl_sdr_tpu``) are made unimportable first, and none
@@ -2758,8 +2778,449 @@ def costas_phase(device, totals: dict) -> dict:
     return res
 
 
+# -- phase 19: the mesh and multi-process paths on the one card -------------
+
+MESH_SHAPES = ((1, 1), (2, 2), (4, 1), (1, 8))
+
+
+def card_mesh(shape):
+    """A (time, channels) mesh whose every entry is cuda:0."""
+    import torch
+
+    from tsl_sdr_tpu_torch.parallel.mesh import make_mesh
+
+    t, c = shape
+    return make_mesh(t, c, devices=[torch.device("cuda", 0)] * (t * c))
+
+
+def mesh_channelizer(iq, totals: dict) -> dict:
+    """(a) ``make_sharded_multifm`` at the pager's plan on the pager block
+    over MESH_SHAPES and at BENCH_SUITE's 64-channel bank on (2, 2): each
+    equal to the (1, 1) mesh (one K1 launch over the whole capture) and,
+    from output 1 on, to the primed streaming chain; K1 launched once a
+    (time span, channel shard)."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
+    from tsl_sdr_tpu_torch.ops import chain as k1
+    from tsl_sdr_tpu_torch.parallel.channelizer import make_sharded_multifm
+    from tsl_sdr_tpu_torch.testing import pager
+
+    cases = [("pager", MultifmChain(pager.lpf_taps(), pager.OFFSETS_HZ,
+                                    pager.FS, pager.DECIMATION,
+                                    device="cuda"),
+              iq[:4_177_920], MESH_SHAPES)]
+    lpf, offs, fs, decim = bench_bank(64)
+    wide = np.random.default_rng(19).integers(
+        -9000, 9000, size=(WIDE_BLOCK, 2), dtype=np.int64).astype(np.int16)
+    cases.append(("64 channels", MultifmChain(lpf, offs, fs, decim,
+                                              device="cuda"),
+                  wide, ((1, 1), (2, 2))))
+    res = {}
+
+    def run():
+        for name, chain, x, shapes in cases:
+            c_len, q = chain.carry_len, chain.block_quantum
+            _, stream = chain.step(chain.init_state(prefix=x[:c_len]),
+                                   x[c_len:][: (len(x) - c_len) // q * q])
+            outs = {}
+            for shape in shapes:
+                before = k1.chain_fm.launches
+                outs[shape] = make_sharded_multifm(
+                    chain.packed_plan, card_mesh(shape))(x)
+                torch.cuda.synchronize()
+                n = k1.chain_fm.launches - before
+                require(n == shape[0] * shape[1],
+                        f"sharded channelizer {name} {shape}: {n} K1 "
+                        f"launches")
+            ref = outs[(1, 1)]
+            k = stream.shape[1]
+            require(torch.equal(ref[:, 1:k], stream[:, 1:]),
+                    f"sharded channelizer {name}: the (1, 1) mesh differs "
+                    f"from the streaming chain")
+            for shape, out in outs.items():
+                require(torch.equal(out, ref),
+                        f"sharded channelizer {name} {shape}: max |diff| "
+                        f"{max_err(out, ref)} from the (1, 1) mesh")
+            res[name] = [list(s) for s in shapes]
+            log(f"sharded channelizer {name} ({len(x)} samples, "
+                f"{chain.nr_channels} channels, body "
+                f"{chain.taps.body}): meshes {res[name]} == one K1 launch "
+                f"over the capture, exactly")
+
+    on_path("the sharded channelizer", ("chain_fm",), run, totals)
+    return res
+
+
+def mesh_resampler(totals: dict) -> dict:
+    """(b) ``make_sharded_resampler`` at 16/25 over 4 time shards, on a
+    packed-row length (K3 a shard) and a residue length (K4 a shard):
+    each equal to the single-device streaming run exactly."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import polyphase, q14
+    from tsl_sdr_tpu_torch.parallel.resampler import make_sharded_resampler
+    from tsl_sdr_tpu_torch.utils.filter_design import (
+        design_rational_resampler_filter)
+
+    plan = polyphase.make_resampler_plan(
+        q14.quantize_q14(design_rational_resampler_filter(16, 25, 0.4)),
+        16, 25, block_out_target=1024)
+    taps = polyphase.plan_taps(plan, device="cuda")
+    n_row = 4 * plan.row_in * 1_500
+    lengths = {"packed-row": n_row, "residue": n_row + 4 * plan.d_rep}
+    x = np.random.default_rng(25).integers(
+        -12000, 12000, size=lengths["residue"], dtype=np.int64).astype(
+        np.int16)
+
+    def single(xx):
+        st = polyphase.init_resampler_carry(
+            plan, 1, device="cuda", prefix=xx[:plan.carry_len])
+        xp = torch.from_numpy(np.concatenate(
+            [xx, np.zeros(plan.block_in, np.int16)])).cuda()
+        outs, pos = [], plan.carry_len
+        while pos + plan.block_in <= xp.numel():
+            st, o = polyphase.resample_step(
+                plan, st, xp[None, pos:pos + plan.block_in], taps)
+            outs.append(o[0])
+            pos += plan.block_in
+        return torch.cat(outs)
+
+    fn = make_sharded_resampler(plan, card_mesh((4, 1)))
+
+    def run():
+        for name, n in lengths.items():
+            got = fn(x[:n])
+            want = single(x[:n])[:got.numel()]
+            require(got.numel() == n * 16 // 25 and torch.equal(got, want),
+                    f"sharded resampler {name}: max |diff| "
+                    f"{max_err(got, want)}")
+            log(f"sharded resampler 16/25, {name} length {n} over 4 shards "
+                f"== the single-device run, exactly")
+
+    on_path("the sharded resampler", ("row_resample", "frame_resample"),
+            run, totals)
+    return {k: int(v) for k, v in lengths.items()}
+
+
+def check_span_resamplers(pipe, seen: set) -> int:
+    """K3 and K4 against their plain versions at every resampler program
+    ``pipe`` built (on a mesh: each time span's length and each channel
+    shard's ratio group), on the group's carry and block shapes, random
+    and adversarial input (-32768 against +-32767 taps), f32 and q14:
+    exactly equal. Shapes in ``seen`` are skipped; returns how many were
+    checked."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import frame_resampler as k4
+    from tsl_sdr_tpu_torch.ops import row_resampler as k3
+
+    rng = np.random.default_rng(19)
+    n = 0
+    for prog in list(pipe._programs.values()):
+        dev = prog.bank.device
+        for gid, idxs in prog.bank.rs_groups.items():
+            plan, taps = prog.plans[gid], prog.rs_taps[gid]
+            key = (gid, len(idxs), plan.block_in, str(dev))
+            if key in seen:
+                continue
+            seen.add(key)
+            shape_c, shape_b = (len(idxs), plan.carry_len), \
+                (len(idxs), plan.block_in)
+            if plan.k_row:
+                name = "K3"
+                adv = adversarial_row_taps(plan, dev)
+
+                def both(c, b, tp, out):
+                    return (k3.row_resample(c, b, tp, row_in=plan.row_in,
+                                            out=out),
+                            k3.row_resample_plain(c, b, tp,
+                                                  row_in=plan.row_in,
+                                                  out=out))
+            else:
+                name = "K4"
+                w = np.where(rng.random(plan.w_frames_i16.shape) < 0.5,
+                             -32767, 32767).astype(np.int16)
+                adv = k4.frame_taps_of(w, plan.d_rep, device=dev)
+                frames = plan.block_out // plan.i_rep
+
+                def both(c, b, tp, out):
+                    return (k4.frame_resample(c, b, tp, frames=frames,
+                                              out=out),
+                            k4.frame_resample_plain(c, b, tp, frames=frames,
+                                                    out=out))
+            cases = (
+                ("random",
+                 torch.from_numpy(rng.integers(-32768, 32767, size=shape_c)
+                                  .astype(np.int16)).to(dev),
+                 torch.from_numpy(rng.integers(-32768, 32767, size=shape_b)
+                                  .astype(np.int16)).to(dev), taps),
+                ("adversarial",
+                 torch.full(shape_c, -32768, dtype=torch.int16, device=dev),
+                 torch.full(shape_b, -32768, dtype=torch.int16, device=dev),
+                 adv))
+            for kind, c, b, tp in cases:
+                for out in ("f32", "q14"):
+                    got, ref = both(c, b, tp, out)
+                    require(torch.equal(got, ref),
+                            f"{name} {gid[0]}/{gid[1]} at a span program "
+                            f"[{len(idxs)}, {plan.block_in}] ({kind}, "
+                            f"{out}): max |diff| {max_err(got, ref)}")
+            n += 1
+            log(f"{name} {gid[0]}/{gid[1]} at a span program: carry "
+                f"{list(shape_c)} block {list(shape_b)} -> "
+                f"{plan.block_out} a row, random and adversarial, f32 and "
+                f"q14 == its plain version, exactly")
+    return n
+
+
+def mesh_pipelines(pager, iq, expected, totals: dict) -> dict:
+    """(c) ``ReceivePipeline(mesh=)`` at the pager deployment (phase 4's
+    capture as rtl_u8, push/flush) on MESH_SHAPES: phase 4's messages with
+    the ``fetched`` counters of the run without a mesh, K1 launched
+    blocks x time spans x channel shards times; the same with the two FLEX
+    channels as ``pcm`` (the DC-blocked one included) on (2, 2) and (4, 1):
+    PCM equal to the run without a mesh; the decimation-50 band on (2, 1):
+    every burst. Each pipeline's K3 and K4 are then held against their
+    plain versions at every span program it built."""
+    import numpy as np
+
+    from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
+
+    specs = pager.channel_specs(ChannelSpec)
+    want = sorted((s.center_freq_hz, cap, text)
+                  for s, exp in zip(specs, expected) for cap, text in exp)
+    flat = pager.to_rtl_u8(iq).reshape(-1)
+
+    def run(specs, shape):
+        pipe = ReceivePipeline(
+            pager.lpf_taps(), pager.CENTER_HZ, pager.FS, pager.DECIMATION,
+            specs, wire_fmt="rtl_u8", device="cuda",
+            mesh=None if shape is None else card_mesh(shape))
+        step = pipe.block_size * 2 // 3 + 1234
+        results = [[] for _ in specs]
+        for lo in range(0, flat.size, step):
+            for i, part in enumerate(pipe.push(flat[lo:lo + step])):
+                results[i].extend(part)
+        for i, part in enumerate(pipe.flush()):
+            results[i].extend(part)
+        return results, pipe.stream_stats, launch_counts(), pipe
+
+    res = {}
+    seen = set()
+    base, base_st, _, _ = on_path("the pager pipeline without a mesh",
+                                  ("chain_fm", "row_resample"),
+                                  lambda: run(specs, None), totals)
+    require(sorted(message_keys(base, specs)) == want,
+            "the pager pipeline without a mesh lost a burst")
+    for shape in MESH_SHAPES:
+        out, st, counts, pipe = on_path(
+            f"the pager pipeline on a {shape} mesh",
+            ("chain_fm", "row_resample"), lambda: run(specs, shape), totals)
+        n_rs = check_span_resamplers(pipe, seen)
+        got = sorted(message_keys(out, specs))
+        require(got == want, f"mesh {shape} decoded {got}, expected {want}")
+        require(np.array_equal(st["fetched"], base_st["fetched"]),
+                f"mesh {shape}: fetched {st['fetched']} != "
+                f"{base_st['fetched']}")
+        k1_want = st["blocks"] * shape[0] * shape[1]
+        require(counts["chain_fm"] == k1_want,
+                f"mesh {shape}: {counts['chain_fm']} K1 launches, want "
+                f"{k1_want}")
+        res[str(shape)] = {"blocks": st["blocks"], "k1": counts["chain_fm"],
+                           "halo_bytes": st["halo_bytes"],
+                           "resampler_shapes_checked": n_rs}
+        log(f"pager pipeline on a {shape} mesh of cuda:0: {len(got)} "
+            f"messages == phase 4's, fetched {st['fetched'].tolist()} == "
+            f"without a mesh, K1 launches {counts['chain_fm']} = "
+            f"{st['blocks']} blocks x {shape[0] * shape[1]}, halo "
+            f"{st['halo_bytes']} B")
+
+    pcm_specs = [ChannelSpec(s.center_freq_hz, "pcm", dc_block=s.dc_block)
+                 if s.protocol == "flex" else s for s in specs]
+    pcm_base, _, _, _ = run(pcm_specs, None)
+    for shape in ((2, 2), (4, 1)):
+        # pcm channels take no resampler: K1 alone on this path
+        out, _, _, _ = on_path(f"the pager pipeline with pcm channels on a "
+                            f"{shape} mesh", ("chain_fm",),
+                            lambda: run(pcm_specs, shape), totals)
+        for i, spec in enumerate(pcm_specs):
+            if spec.protocol != "pcm":
+                continue
+            a, b = np.concatenate(out[i]), np.concatenate(pcm_base[i])
+            require(a.shape == b.shape and np.array_equal(a, b),
+                    f"mesh {shape} pcm channel {i} "
+                    f"(dc_block={spec.dc_block}): max |diff| "
+                    f"{np.abs(a.astype(np.int32) - b).max()}")
+        log(f"pager pcm channels on a {shape} mesh (one DC-blocked): "
+            f"{b.size} samples each == without a mesh, exactly")
+
+    dspecs = pager.dec50_channel_specs(ChannelSpec)
+    starts = [200_000 + k * 1_300_000 for k in range(len(dspecs))]
+
+    def dec50(shape):
+        pipe = ReceivePipeline(pager.dec50_lpf_taps(), pager.CENTER_HZ,
+                               pager.FS, pager.DEC50_DECIMATION, dspecs,
+                               device="cuda",
+                               mesh=None if shape is None else
+                               card_mesh(shape))
+        cap, exp = pager.capture(2 * pipe.block_size + TAIL_SAMPLES, starts,
+                                 seed=8)
+        got = [(f, c, t.rstrip("\0")) for f, c, t in
+               sorted(message_keys(pipe.process_capture(cap), dspecs))]
+        want = sorted((s.center_freq_hz, c, t)
+                      for s, e in zip(dspecs, exp) for c, t in e)
+        require(got == want, f"decimation 50 on {shape} decoded {got}")
+        return pipe.stream_stats, pipe
+
+    st0, _ = dec50(None)
+    st, pipe = on_path("the decimation-50 pipeline on a (2, 1) mesh",
+                       ("chain_fm", "frame_resample"),
+                       lambda: dec50((2, 1)), totals)
+    n_rs = check_span_resamplers(pipe, seen)
+    require(n_rs > 0, "decimation 50 on (2, 1): no K4 span program")
+    require(np.array_equal(st["fetched"], st0["fetched"]),
+            f"decimation 50 on (2, 1): fetched {st['fetched']} != "
+            f"{st0['fetched']}")
+    log(f"decimation-50 band on a (2, 1) mesh: every burst, "
+        f"{st['blocks']} blocks, fetched {st['fetched'].tolist()} == "
+        f"without a mesh")
+    res["dec50 (2, 1)"] = {"blocks": st["blocks"],
+                           "resampler_shapes_checked": n_rs}
+    return res
+
+
+def mesh_cli(pager, iq, expected, tmp: Path) -> dict:
+    """(d) ``pipeline-torch --time-shards 2`` on one card exits 2 with the
+    device-count message; (e) ``pipeline-torch --distributed`` over two
+    processes on cuda:0 (gloo): rank 0 writes phase 4's messages, rank 1
+    nothing; each rank's upload and halo bytes a block."""
+    import socket
+
+    import torch
+
+    from tsl_sdr_tpu_torch.cli import pipeline as cli
+    from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec
+
+    cap_path = tmp / "capture.cs16"
+    iq.reshape(-1).tofile(cap_path)
+    cfg_path = tmp / "pager8.json"
+    cfg_path.write_text(json.dumps(pager.config(str(cap_path))))
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main([str(cfg_path), "--time-shards", "2",
+                       "--device", "cuda"])
+    n = torch.cuda.device_count()
+    msg = (f"pipeline-torch: --time-shards 2 x --channel-shards 1 needs 2 "
+           f"devices, have {n}")
+    require(rc == 2 and err.getvalue().strip() == msg,
+            f"--time-shards 2 on {n} card(s): rc {rc}, {err.getvalue()!r}")
+    log(f"(d) pipeline-torch --time-shards 2: exit 2, {msg!r}")
+
+    specs = pager.channel_specs(ChannelSpec)
+    want = sorted((s.center_freq_hz, cap, text)
+                  for s, exp in zip(specs, expected) for cap, text in exp)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n" for m in BLOCKED)
+            + f"sys.path.insert(0, {str(HERE)!r})\n"
+            "from tsl_sdr_tpu_torch.cli import pipeline\n"
+            "sys.exit(pipeline.main(sys.argv[1:]))\n")
+    outs = {r: tmp / f"dist{r}.jsonl" for r in (0, 1)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(cfg_path), "--iq-file",
+         str(cap_path), "--iq-format", "cs16", "-o", str(outs[r]),
+         "--device", "cuda", "--distributed", f"127.0.0.1:{port}",
+         "--num-processes", "2", "--process-id", str(r)],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in (0, 1)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=600)[1])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = time.perf_counter() - t0
+    for r, proc in enumerate(procs):
+        require(proc.returncode == 0,
+                f"--distributed rank {r} exited {proc.returncode}: "
+                f"{logs[r][-3000:]}")
+    lines = [json.loads(x) for x in outs[0].read_text().splitlines()]
+    got = sorted((m["freqHz"], m["capCode"], m["message"]) for m in lines)
+    require(got == want, f"--distributed rank 0 wrote {got}")
+    require(not outs[1].exists(), "--distributed rank 1 wrote messages")
+    ranks = {}
+    for r, text in enumerate(logs):
+        m = re.search(r"process (\d) of 2: blocks=(\d+) upload_bytes=(\d+) "
+                      r"halo_bytes=(\d+)", text)
+        require(m is not None and int(m.group(1)) == r,
+                f"--distributed rank {r} printed no stats: {text[-2000:]}")
+        blocks, up, halo = map(int, m.group(2, 3, 4))
+        ranks[r] = {"blocks": blocks, "upload_bytes": up,
+                    "halo_bytes": halo,
+                    "upload_bytes_per_block": up / blocks,
+                    "halo_bytes_per_block": halo / blocks}
+    log(f"(e) pipeline-torch --distributed, 2 processes on cuda:0 (gloo): "
+        f"rank 0 wrote phase 4's {len(got)} messages, rank 1 none, in "
+        f"{wall:.1f} s; per rank {json.dumps(ranks)}")
+    return {"wall_s": wall, "ranks": ranks}
+
+
+def mesh_walls(pager, iq, trials: int = 6) -> dict:
+    """(f) Wall time a block of the pager pipeline (phase 4's capture as
+    rtl_u8, ``process_capture``) without a mesh, on (1, 1) and on (2, 2)
+    of cuda:0, in turns (none, (1, 1), (2, 2), (2, 2), (1, 1), none, ...):
+    the sharding's overhead on one card, not a scaling figure."""
+    import numpy as np
+
+    from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
+
+    flat = pager.to_rtl_u8(iq).reshape(-1)
+    pipes = {}
+    for name, shape in (("no mesh", None), ("(1, 1)", (1, 1)),
+                        ("(2, 2)", (2, 2))):
+        pipes[name] = ReceivePipeline(
+            pager.lpf_taps(), pager.CENTER_HZ, pager.FS, pager.DECIMATION,
+            pager.channel_specs(ChannelSpec), wire_fmt="rtl_u8",
+            device="cuda", mesh=None if shape is None else card_mesh(shape))
+        pipes[name].warm_device()
+    order = list(pipes)
+    walls = {name: [] for name in pipes}
+    for k in range(trials):
+        for name in (order if k % 2 == 0 else order[::-1]):
+            pipe = pipes[name]
+            t0 = time.perf_counter()
+            pipe.process_capture(flat)
+            _sync("cuda")
+            walls[name].append((time.perf_counter() - t0) * 1e3
+                               / pipe.stream_stats["blocks"])
+    return {name: {"median_ms": float(np.median(w)), "min_ms": min(w),
+                   "max_ms": max(w), "trials_ms": [round(x, 3) for x in w]}
+            for name, w in walls.items()}
+
+
+def mesh_phase(pager, iq, expected, totals: dict) -> dict:
+    """Phase 19: the mesh and multi-process paths on the one card."""
+    res = {"channelizer": mesh_channelizer(iq, totals),
+           "resampler": mesh_resampler(totals),
+           "pipelines": mesh_pipelines(pager, iq, expected, totals)}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["distributed"] = mesh_cli(pager, iq, expected, Path(tmp))
+    res["walls"] = mesh_walls(pager, iq)
+    return res
+
+
 def smoke(device: str) -> dict:
-    """Phases 2-18 on ``device``; returns the kernels' summary."""
+    """Phases 2-19 on ``device``; returns the kernels' summary."""
     import torch
 
     from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
@@ -2808,13 +3269,14 @@ def smoke(device: str) -> dict:
         f"{k1_t['bound_ms']:.5f} ms ({k1_t['bound_by']}), "
         f"{k1_t['bound_ms'] / k1_t['ms']:.1%} of it")
     k3_times = time_k3(k3_args)
-    # the whole device step of one block (every stage, K1 and K3 included):
-    # back-to-back steps, so it is the larger of device time and host
-    # enqueue time
+    # the engine's whole step of one block (its upload and every device
+    # stage, K1 and K3 included): back-to-back steps, so it is the larger
+    # of device time and host time
     pipe._stream_init(iq[: plan.carry_len])
-    prog = pipe._program(pipe.block_size)
     st = pipe._stream["st"]
-    run["step_ms"] = time_ms(lambda: prog.dev_step(st, block), 10)
+    flat = iq[plan.carry_len: plan.carry_len + pipe.block_size].reshape(-1)
+    run["step_ms"] = time_ms(
+        lambda: pipe._engine.step(st, flat, pipe._stream), 10)
     pipe.stream_reset()
     del vals, carry, block
 
@@ -2823,6 +3285,7 @@ def smoke(device: str) -> dict:
         live = live_runs(pager, iq, expected, device, Path(tmp), totals,
                          pipe.block_size, plan.carry_len)
     exact = exact_phases(pipe, iq, expected, device, totals)
+    mesh = mesh_phase(pager, iq, expected, totals)
     del iq
     wide = wide_phase(device, totals)
     wide_k = wide["kernels"]
@@ -2840,6 +3303,7 @@ def smoke(device: str) -> dict:
         "k3": k3_times,
         "k4": front["k4"],
         "costas": costas,
+        "mesh": mesh,
         "kernels": [
             {"name": "chain_fm", "route": "cuda",
              "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
@@ -2922,7 +3386,8 @@ def main() -> int:
         f"{run['samples'] / run['wall_s'] / 1e6:.1f} Msps wideband; "
         f"cs16 CLI run {run['cli_s']:.3f} s; decoder tier {run['tier']}")
     log(f"{card} | host-blocked seconds by phase: {json.dumps(run['timing'])}")
-    log(f"{card} | device step (all stages of one block, back to back): "
+    log(f"{card} | engine step (the upload and all device stages of one "
+        f"block, back to back): "
         f"{run['step_ms']:.3f} ms per block")
     live = summary["live"]
     for r in live["fifo"]:
@@ -2969,6 +3434,18 @@ def main() -> int:
     log(f"{card} | Costas lock (re/im power, mean |re|) by channel: "
         f"{json.dumps(costas['lock'])}")
     log(f"{card} | K6 slice block: {json.dumps(costas['k6'])}")
+    mesh = summary["mesh"]
+    for name, w in mesh["walls"].items():
+        log(f"{card} | pager pipeline ms a block, {name} (cuda:0 only; "
+            f"the sharding's overhead, no scaling): median "
+            f"{w['median_ms']:.3f}, min {w['min_ms']:.3f}, max "
+            f"{w['max_ms']:.3f}; trials {w['trials_ms']}")
+    for r, st in mesh["distributed"]["ranks"].items():
+        log(f"{card} | --distributed rank {r}: "
+            f"{st['upload_bytes_per_block']:.0f} upload B a block, "
+            f"{st['halo_bytes_per_block']:.0f} halo B a block "
+            f"({st['blocks']} blocks)")
+    log(f"{card} | mesh pipelines: {json.dumps(mesh['pipelines'])}")
     for kernel in ("k3", "k4"):
         for name, k in summary[kernel].items():
             log(f"{card} | {kernel.upper()} {name}: {json.dumps(k)}")

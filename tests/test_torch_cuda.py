@@ -413,6 +413,69 @@ def test_checkpoint_moves_between_card_and_cpu(cuda, pager_capture, tmp_path,
     assert _legs(first, second, iq, tmp_path / "s.npz") == want
 
 
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (4, 1), (1, 8)])
+def test_sharded_channelizer_on_the_card(cuda, shape):
+    """The sharded channelizer at the pager's plan on a mesh of the one
+    card repeated: K1 once for each (time span, channel shard), and the
+    result equal to the same mesh of CPU stand-ins (the plain version)
+    and to one K1 call over the whole capture."""
+    from tsl_sdr_tpu_torch.ops import packed_fir
+    from tsl_sdr_tpu_torch.parallel.channelizer import make_sharded_multifm
+    from tsl_sdr_tpu_torch.parallel.mesh import make_mesh
+
+    plan = packed_fir.make_packed_fir_plan(
+        pager.lpf_taps(), pager.OFFSETS_HZ, pager.FS, pager.DECIMATION)
+    t, c = shape
+    iq = _iq(8 * 4_096 * plan.row // 2, 11)
+
+    def run(devices, mesh_shape):
+        mesh = make_mesh(*mesh_shape, devices=devices * (
+            mesh_shape[0] * mesh_shape[1]))
+        return make_sharded_multifm(plan, mesh)(iq).cpu()
+
+    before = k1.chain_fm.launches
+    got = run([cuda], shape)
+    assert k1.chain_fm.launches - before == t * c
+    assert torch.equal(got, run(["cpu"], shape))
+    assert torch.equal(got, run([cuda], (1, 1)))
+
+
+def test_mesh_pipeline_on_the_card(cuda, pager_capture):
+    """ReceivePipeline on a (2, 2) mesh of the one card decodes every
+    burst as the pipeline without a mesh does, with equal fetched
+    counters; K1 launches = blocks x spans x channel shards."""
+    from tsl_sdr_tpu_torch.parallel.mesh import make_mesh
+
+    iq, _ = pager_capture
+    bounds = [0, 1_000, 700_001, 2_345_678, len(iq)]
+    base = _pager_pipe(cuda)
+    want = _pager_run(base, iq, bounds)
+    pipe = _pager_pipe(cuda, mesh=make_mesh(2, 2, devices=[cuda] * 4))
+    before = k1.chain_fm.launches
+    assert _pager_run(pipe, iq, bounds) == want
+    assert k1.chain_fm.launches - before == 4 * pipe.stream_stats["blocks"]
+    np.testing.assert_array_equal(pipe.stream_stats["fetched"],
+                                  base.stream_stats["fetched"])
+
+
+def test_cli_device_count_guard(cuda, tmp_path, capsys):
+    """pipeline-torch refuses a mesh larger than the CUDA devices it sees,
+    with pipeline-tpu's message."""
+    import json
+
+    from tsl_sdr_tpu_torch.cli import pipeline as cli
+
+    iq_path = tmp_path / "cap.cs16"
+    np.zeros(100_000 * 2, np.int16).tofile(iq_path)
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps(pager.config(str(iq_path))))
+    n = torch.cuda.device_count()
+    assert cli.main([str(cfg), "--time-shards", str(n + 1)]) == 2
+    assert capsys.readouterr().err == (
+        f"pipeline-torch: --time-shards {n + 1} x --channel-shards 1 needs "
+        f"{n + 1} devices, have {n}\n")
+
+
 # rows = 3 of K5's tiles + extra: whole tiles, a ragged last one, 70,768
 # rows at the pager (277 units for the card's 132 blocks, a run of units
 # ending mid-block, more than 65,535 rows) and 37 rows at 8 channels (the

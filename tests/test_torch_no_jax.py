@@ -3,7 +3,8 @@
 A subprocess makes ``jax``, ``jaxlib`` and ``tsl_sdr_tpu`` unimportable
 before anything loads, then imports the port, its pipeline, its CLI, its
 hardware sources and mock radios, builds a 4-channel CPU pipeline and
-decodes one POCSAG burst, every decoder on its native state machine. A
+decodes one POCSAG burst, every decoder on its native state machine, then
+again on a (2, 2) mesh, and runs the sharded channelizer. A
 second one runs ``decoder-torch`` (a 25/16 frame-form POCSAG input, exact
 tier, ``-b``) and ``resampler-torch``, a third ``pipeline-torch --follow``
 on a FIFO, a fourth ``multifm-torch --exact`` (both I/O runtimes) and
@@ -62,6 +63,19 @@ res = pipe.process_capture(iq.astype(np.int16))
 assert [(m.capcode, m.data) for m in res[1]] == [(424242, b"NO JAX HERE")], res
 assert not any(res[i] for i in (0, 2, 3)), res
 assert all(d._nat is not None for d in pipe._decoders), "expected native"
+# the same on a (2, 2) mesh of CPU stand-ins, and the sharded channelizer
+import tsl_sdr_tpu_torch.parallel.multihost
+from tsl_sdr_tpu_torch.parallel.channelizer import make_sharded_multifm
+from tsl_sdr_tpu_torch.parallel.mesh import make_mesh
+mesh = make_mesh(time=2, channels=2, devices=["cpu"] * 4)
+pipe = ReceivePipeline(pager.lpf_taps(), pager.CENTER_HZ, pager.FS,
+                       pager.DECIMATION, specs, block_size=1_000_000,
+                       mesh=mesh)
+assert [(m.capcode, m.data) for m in pipe.process_capture(
+    iq.astype(np.int16))[1]] == [(424242, b"NO JAX HERE")]
+pcm = make_sharded_multifm(pipe.chain.packed_plan, mesh)(
+    iq.astype(np.int16)[:64 * pipe.chain.packed_plan.row])  # 128 rows
+assert pcm.shape == (4, 128 * pipe.chain.packed_plan.opr), pcm.shape
 assert sys.modules["jax"] is None and sys.modules["tsl_sdr_tpu"] is None
 """ + _CHECK + r"""
 print("NO-JAX OK")
@@ -267,6 +281,9 @@ def test_no_port_file_imports_jax():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"tsl_sdr_tpu_torch/parallel/{m}.py" for m in (
+        "__init__", "mesh", "channelizer", "resampler", "multihost",
+        "pipeline", "_mh_worker", "_mh_pipeline_worker")} <= names
     assert {"tsl_sdr_tpu_torch/ops/costas.py",
             "tsl_sdr_tpu_torch/ops/mueller_muller.py",
             "tsl_sdr_tpu_torch/models/costas_channel.py",

@@ -130,7 +130,10 @@ def test_dev_step_from_jax_mid_stream_state(capture):
     block = iq[c_len + 4 * BLOCK: c_len + 5 * BLOCK].reshape(-1)
     pipe = _port(capture)
     prog = pipe._program(BLOCK)
-    st2, (pack, raw) = prog.dev_step(st, torch.from_numpy(block.copy()))
+    stats = {"upload_elems": 0, "upload_bytes": 0, "halo_bytes": 0}
+    st2, (pack, raw) = pipe._engine.step(st, block.copy(), stats)
+    assert stats == {"upload_elems": block.size,
+                     "upload_bytes": block.nbytes, "halo_bytes": 0}
     jprog = jp._program(BLOCK)
     jc, jrs, jdc, jtails, (jpack, jraw) = jprog.fn(
         jst["chain"], jst["rs"], jst["dc"], jst["tails"], block)
@@ -231,14 +234,90 @@ def test_cli_matches_pipeline_tpu(tmp_path, fmt):
     assert np.abs(a.astype(np.int32) - b).max() <= 1
 
 
+def _pager_cli_config(tmp_path, n_samples, starts):
+    """The 8-channel pager deployment as a pipeline config over a short
+    capture with bursts at ``starts``; returns (config path, expected)."""
+    from tsl_sdr_tpu_torch.testing import pager
+
+    iq, expected = pager.capture(n_samples, starts, seed=3)
+    iq_path = tmp_path / "pager.cs16"
+    iq.reshape(-1).tofile(iq_path)
+    cfg_path = tmp_path / "pager.json"
+    cfg_path.write_text(json.dumps(pager.config(str(iq_path))))
+    return cfg_path, expected
+
+
 @pytest.mark.parametrize("argv", [
-    ["--time-shards", "2"], ["--num-processes", "2"], ["--distributed", "h:1"],
-    ["--backend", "xla"], ["--channel-shards", "2"], ["--process-id", "0"],
-])
-def test_cli_unported_flags_exit_2(tmp_path, capsys, argv):
-    rc = torch_cli.main([str(tmp_path / "unused.json"), *argv])
-    assert rc == 2
-    assert "not yet ported to tsl_sdr_tpu_torch" in capsys.readouterr().err
+    ["--distributed", "h:1"],
+    ["--distributed", "h:1", "--num-processes", "2"],
+    ["--distributed", "h:1", "--process-id", "0"],
+    ["--distributed", "h:1", "--num-processes", "2", "--process-id", "1",
+     "--state-file", "s.npz"],
+    ["--channel-shards", "3"],
+    ["--channel-shards", "3", "--time-shards", "2"],
+    ["--channel-shards", "5"],
+    ["--state-file", "s.npz", "--time-shards", "2"],
+    ["--follow", "--state-file", "s.npz", "--exact", "--channel-shards", "2"],
+], ids=["distributed-alone", "no-process-id", "no-num-processes",
+        "distributed-state-file", "channels-3", "channels-3-time-2",
+        "channels-5", "state-file-no-follow", "state-file-exact"])
+def test_cli_mesh_guards_match_jax(tmp_path, capsys, argv):
+    """The guards of the mesh and multi-process flags, through
+    pipeline-torch --device cpu and pipeline-tpu (8 virtual CPU devices):
+    the same exit code and the same stderr, program name aside. (The
+    device-count guard cannot fire on the CPU, which stands in for as many
+    devices as a mesh asks for; tests/test_torch_cuda.py holds it.)"""
+    from tsl_sdr_tpu.cli import pipeline as jax_cli
+
+    cfg_path, _ = _pager_cli_config(tmp_path, 300_000, ())
+    argv = [str(cfg_path), "-o", str(tmp_path / "out.jsonl"), *argv]
+    rc_tpu = jax_cli.main(argv)
+    err_tpu = capsys.readouterr().err
+    rc_torch = torch_cli.main(argv + ["--device", "cpu"])
+    err_torch = capsys.readouterr().err
+    assert rc_tpu == rc_torch == 2
+    assert err_torch == err_tpu.replace("pipeline-tpu", "pipeline-torch")
+    assert not (tmp_path / "out.jsonl").exists()
+
+
+def test_cli_backend_is_accepted_and_ignored(tmp_path, capsys):
+    """--backend takes pipeline-tpu's four values (and only those) and
+    changes nothing."""
+    cfg_path, expected = _pager_cli_config(tmp_path, 1_700_000, (150_000,))
+    outs = []
+    for extra in ([], ["--backend", "pallas"], ["--backend", "xla"]):
+        out = tmp_path / f"out{len(outs)}.jsonl"
+        assert torch_cli.main([str(cfg_path), "-o", str(out), "--device",
+                               "cpu", *extra]) == 0
+        outs.append([{k: v for k, v in json.loads(x).items()
+                      if k != "timestamp"}
+                     for x in out.read_text().splitlines()])
+    assert outs[0] == outs[1] == outs[2]
+    assert [(m["capCode"], m["message"]) for m in outs[0]] == expected[0]
+    with pytest.raises(SystemExit):
+        torch_cli.main([str(cfg_path), "--backend", "cuda"])
+    assert "invalid choice" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("shards", [["--channel-shards", "2"],
+                                    ["--channel-shards", "2",
+                                     "--time-shards", "2"]],
+                         ids=["channels-2", "2x2"])
+def test_cli_shards_decode_pager_as_without_mesh(tmp_path, shards):
+    """The pager deployment (eight channels, a burst on the first) through
+    pipeline-torch --device cpu with shard flags writes what the run
+    without them writes."""
+    cfg_path, expected = _pager_cli_config(tmp_path, 1_700_000, (150_000,))
+    outs = []
+    for extra in ([], shards):
+        out = tmp_path / f"out{len(outs)}.jsonl"
+        assert torch_cli.main([str(cfg_path), "-o", str(out), "--device",
+                               "cpu", *extra]) == 0
+        outs.append([{k: v for k, v in json.loads(x).items()
+                      if k != "timestamp"}
+                     for x in out.read_text().splitlines()])
+    assert outs[0] == outs[1]
+    assert [(m["capCode"], m["message"]) for m in outs[0]] == expected[0]
 
 
 def test_default_device_needs_cuda(capture):

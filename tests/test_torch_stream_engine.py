@@ -132,19 +132,26 @@ def test_stream_reset_joins_worker_with_entries_queued(capture):
     on a fresh pipeline, gating counts included."""
     pipe = _port(inflight_depth=1, drain_async=True)
     slow = pipe._drain
+    release = threading.Event()
 
-    def drain_slowly(s, entry, new):
-        time.sleep(0.05)
+    def drain_held(s, entry, new):
+        # the worker holds its first block until the test has looked at
+        # the queue behind it
+        release.wait(timeout=60)
         slow(s, entry, new)
 
-    pipe._drain = drain_slowly
+    pipe._drain = drain_held
+    # 4 blocks dispatched at inflight depth 1: 3 handed to the worker, one
+    # held by it and 2 queued (the queue's bound; a 4th hand-off would
+    # wait for the held block)
     noise = np.random.default_rng(4).normal(
-        scale=120, size=(6 * BLOCK, 2)).astype(np.int16)
+        scale=120, size=(5 * BLOCK, 2)).astype(np.int16)
     pipe.push(noise)
     old = pipe._stream
     worker = old["dthread"]
-    assert old["dq"].qsize() > 0 and worker.is_alive()
-    handed = old["blocks"] + old["dq"].qsize()
+    assert old["dq"].qsize() == 2 and worker.is_alive()
+    handed = old["blocks"] + old["dq"].qsize() + 1
+    release.set()
     pipe.stream_reset()
     assert not worker.is_alive()
     assert old["blocks"] >= handed       # drained into its own stream

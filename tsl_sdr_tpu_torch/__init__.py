@@ -19,6 +19,9 @@ counterpart's path (``ops/packed_fir.py`` here ports
 * ``native``  — the decoders' C++ state machines (``tslstream.cc``).
 * ``runtime`` — ``PushResampler`` and the CLIs' streaming helpers;
                 ``runtime.native`` builds ``native/`` with g++ at first use.
+* ``parallel``— meshes of devices, the sharded channelizer and resampler,
+                ``ReceivePipeline(mesh=)``'s engine, and multi-process
+                runs over ``torch.distributed`` (gloo).
 * ``cli``     — ``pipeline-torch`` (file-capture mode), ``resampler-torch``
                 and ``decoder-torch``.
 * ``kernels`` — builds ``csrc/*.cu`` with ``nvcc`` at first use.

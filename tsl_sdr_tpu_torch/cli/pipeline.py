@@ -14,9 +14,23 @@ warm failover leg.
     pipeline-torch cfg.json --iq-file cap.cs16 --exact
 
 ``--exact`` runs the bit-exact tier (the reference's PCM bit for bit, no
-egress gating, no ``--state-file``). The mesh, multi-process and backend
-flags of ``pipeline-tpu`` are not ported; each exits with code 2 and says
-so.
+egress gating, no ``--state-file``).
+
+``--time-shards``/``--channel-shards`` run each block over a mesh of
+devices (:mod:`tsl_sdr_tpu_torch.parallel.pipeline`): the CUDA devices
+this process sees, or, with ``--device cpu``, the CPU standing in for as
+many devices as the mesh asks for. ``--distributed HOST:PORT`` spans the
+mesh over ``--num-processes`` processes (gloo; run the same command with
+each ``--process-id``): every process reads the same input, uploads only
+its own time span of each block, and decodes identically; only process 0
+writes messages, audio and NMEA. Without shard flags the time axis takes
+every process's devices (one a process with ``--device cpu``).
+
+    pipeline-torch cfg.json --iq-file cap.cs16 --time-shards 2
+    pipeline-torch cfg.json --iq-file cap.cs16 \\
+        --distributed 10.0.0.1:29500 --num-processes 2 --process-id 0
+
+``--backend`` is accepted for ``pipeline-tpu`` command lines and ignored.
 """
 
 from __future__ import annotations
@@ -32,14 +46,6 @@ import time
 import numpy as np
 
 PROG = "pipeline-torch"
-NOT_PORTED = "not yet ported to tsl_sdr_tpu_torch"
-
-# pipeline-tpu flags this port does not have yet: (flag, takes a value)
-_UNPORTED = (
-    ("--backend", True), ("--channel-shards", True),
-    ("--time-shards", True), ("--distributed", True),
-    ("--num-processes", True), ("--process-id", True),
-)
 
 
 class _SignalGuard:
@@ -146,19 +152,69 @@ def build_argparser():
                    help="emit NMEA 0183 !AIVDM sentences for every "
                         "CRC-valid packet on ais channels to FILE "
                         "('-' = stdout)")
-    for flag, takes_value in _UNPORTED:
-        p.add_argument(flag, default=None, help=f"({NOT_PORTED})",
-                       **({} if takes_value else {"action": "store_true"}))
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "xla", "pallas", "pallas-high"],
+                   help="accepted for pipeline-tpu command lines and "
+                        "ignored: every value runs the one production "
+                        "kernel (K1)")
+    p.add_argument("--channel-shards", type=int, default=1,
+                   help="split the channels over this many devices (the "
+                        "channel count must divide evenly); decodes what "
+                        "one device decodes")
+    p.add_argument("--time-shards", type=int, default=1,
+                   help="split each block's samples over this many "
+                        "devices (the mesh's time axis); composes with "
+                        "--channel-shards (time x channels devices)")
+    p.add_argument("--distributed", metavar="HOST:PORT", default=None,
+                   help="span the mesh over --num-processes processes "
+                        "(gloo at tcp://HOST:PORT; the same command on "
+                        "each with its --process-id): each reads the same "
+                        "input and uploads only its time span of a block; "
+                        "only process 0 writes output")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="process count for --distributed")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank for --distributed")
     return p
+
+
+def _local_devices(device: str, n_need: int, n_proc: int) -> list:
+    """This process's devices for a mesh of ``n_need`` over ``n_proc``
+    processes: the CUDA devices it sees, or the CPU standing in for its
+    share of the mesh (so the device count never refuses a CPU mesh)."""
+    import torch
+
+    if torch.device(device).type == "cpu":
+        return [torch.device("cpu")] * max(1, n_need // n_proc)
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return [torch.device("cuda", k) for k in range(n)]
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    for flag, takes_value in _UNPORTED:
-        value = getattr(args, flag.lstrip("-").replace("-", "_"))
-        if (value is not None) if takes_value else value:
-            print(f"{PROG}: {flag} is {NOT_PORTED}", file=sys.stderr)
+    is_main = True
+    if args.distributed is not None:
+        if args.num_processes is None or args.process_id is None:
+            print(f"{PROG}: --distributed needs --num-processes and "
+                  "--process-id", file=sys.stderr)
             return 2
+        if args.state_file is not None:
+            print(f"{PROG}: --state-file is single-process; multi-host "
+                  "deployments checkpoint their input feed per host",
+                  file=sys.stderr)
+            return 2
+        from tsl_sdr_tpu_torch.parallel import multihost
+
+        multihost.init(args.distributed, num_processes=args.num_processes,
+                       process_id=args.process_id)
+        is_main = multihost.rank() == 0
+        n_need = args.time_shards * args.channel_shards
+        n_global = multihost.global_device_count(
+            _local_devices(args.device, n_need, multihost.world_size()))
+        if args.time_shards == 1 and args.channel_shards == 1:
+            # default: split each block's samples over every device of
+            # every process
+            args.time_shards = n_global
     if args.state_file is not None and not args.follow:
         print(f"{PROG}: --state-file requires --follow", file=sys.stderr)
         return 2
@@ -222,6 +278,40 @@ def main(argv=None):
         for ch_raw, ch in zip(raw["channels"], cfg.channels)
     ]
 
+    mesh = None
+    if args.channel_shards > 1 or args.time_shards > 1:
+        from tsl_sdr_tpu_torch.parallel import multihost
+        from tsl_sdr_tpu_torch.parallel.mesh import make_mesh
+
+        n_need = args.channel_shards * args.time_shards
+        n_proc = multihost.world_size()
+        local = _local_devices(args.device, n_need, n_proc)
+        n_dev = (multihost.global_device_count(local)
+                 if args.distributed is not None else len(local))
+        if n_dev < n_need:
+            print(f"{PROG}: --time-shards {args.time_shards} x "
+                  f"--channel-shards {args.channel_shards} needs "
+                  f"{n_need} devices, have {n_dev}", file=sys.stderr)
+            return 2
+        if args.distributed is not None and n_need != n_dev:
+            # a partial mesh would leave other ranks' devices out of the
+            # computation, and the ranks would cut blocks differently
+            print(f"{PROG}: --distributed meshes must span every global "
+                  f"device: time x channels = {n_need} but {n_dev} "
+                  "devices are attached", file=sys.stderr)
+            return 2
+        if len(specs) % args.channel_shards:
+            print(f"{PROG}: {len(specs)} channels not divisible by "
+                  f"--channel-shards {args.channel_shards}", file=sys.stderr)
+            return 2
+        if args.distributed is not None:
+            mesh = multihost.make_global_mesh(args.channel_shards,
+                                              local_devices=local)
+        else:
+            mesh = make_mesh(time=args.time_shards,
+                             channels=args.channel_shards,
+                             devices=local[:n_need])
+
     nmea_out = None
     ais_hook = None
     if args.nmea is not None:
@@ -229,6 +319,8 @@ def main(argv=None):
             print(f"{PROG}: --nmea needs at least one ais channel",
                   file=sys.stderr)
             return 2
+    if args.nmea is not None and is_main:
+        # every process decodes identically; only process 0 feeds NMEA
         from tsl_sdr_tpu_torch.models.ais import (NmeaEmitter,
                                                   aivdm_channel_for_freq)
 
@@ -245,14 +337,20 @@ def main(argv=None):
         wire_fmt=wire_fmt,
         device=args.device,
         drain_async=args.follow and not args.no_drain_async,
+        mesh=mesh,
     )
 
-    out = open(args.output, "w", buffering=1) if args.output else sys.stdout
-    iq_dump = open(args.iq_dump, "wb") if args.iq_dump else None
+    if is_main:
+        out = (open(args.output, "w", buffering=1) if args.output
+               else sys.stdout)
+    else:
+        # every process decodes the same; only process 0 writes
+        out = open(os.devnull, "w")
+    iq_dump = open(args.iq_dump, "wb") if args.iq_dump and is_main else None
     pcm_sinks = {
         i: open(ch.out_fifo, "wb")
         for i, (spec, ch) in enumerate(zip(specs, cfg.channels))
-        if spec.protocol == "pcm" and ch.out_fifo
+        if spec.protocol == "pcm" and ch.out_fifo and is_main
     }
     n_msgs = 0
 
@@ -321,6 +419,14 @@ def main(argv=None):
           "Msps)", file=sys.stderr)
     print(f"{PROG}: decoder tier {' '.join(sorted(pipe.decoder_tiers))}",
           file=sys.stderr)
+    if args.distributed is not None:
+        from tsl_sdr_tpu_torch.parallel import multihost
+
+        st = pipe.stream_stats
+        print(f"{PROG}: process {multihost.rank()} of "
+              f"{multihost.world_size()}: blocks={st['blocks']} "
+              f"upload_bytes={st['upload_bytes']} "
+              f"halo_bytes={st['halo_bytes']}", file=sys.stderr)
     return 0
 
 

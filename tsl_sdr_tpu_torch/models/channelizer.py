@@ -96,6 +96,21 @@ def capture_blocks(iq, block_size: int, quantum: int, carry_len: int):
     return (iq[:carry_len] if carry_len else None), blocks
 
 
+def step_raw(taps: ChainTaps, state: MultifmFastState, block: torch.Tensor):
+    """One production-tier block through K1 (:func:`chain_fm`) with the
+    constants ``taps``: (state, flat interleaved int16 block [2N]) ->
+    (state, pcm [rows, opr*C] int16 in flat (k, c) order)."""
+    block = block.reshape(-1)
+    prev = torch.stack([state.prev_r, state.prev_i])
+    pcm, prev2 = chain_fm(taps, state.carry_vals, prev, block)
+    carry = packed_fir.next_carry(state.carry_vals, block,
+                                  taps.plan.carry_vals)
+    return MultifmFastState(
+        carry_vals=carry, prev_r=prev2[0], prev_i=prev2[1],
+        out_index=state.out_index + pcm.numel() // taps.plan.nr_channels,
+    ), pcm
+
+
 class HostCopy:
     """A device->host copy started now and waited for at :meth:`numpy`:
     into pinned memory with ``non_blocking=True`` and a CUDA event on the
@@ -147,10 +162,7 @@ class MultifmChain:
             lpf_taps, offsets_hz, sample_rate, decimation, gains)
         self.sample_rate = float(sample_rate)
         self.decimation = int(decimation)
-        # per-output derotation increment reduced to (-pi, pi] in float64
-        w = self.packed_plan.omega_d.astype(np.float64)
-        self._omega_reduced = (
-            w - 2 * np.pi * np.round(w / (2 * np.pi))).astype(np.float32)
+        self._omega_reduced = packed_fir.reduced_omega(self.packed_plan)
         # wide banks take the phase-grouped form of the product (as the
         # JAX package chooses: grouped_fir_worthwhile); K1 and K5 then run
         # each tap tile's non-zero k-steps only
@@ -269,15 +281,7 @@ class MultifmChain:
     def _step_raw(self, state: MultifmFastState, block: torch.Tensor):
         """(state, flat interleaved int16 block [2N]) -> (state, pcm
         [rows, opr*C] int16 in flat (k, c) order)."""
-        block = block.reshape(-1)
-        prev = torch.stack([state.prev_r, state.prev_i])
-        pcm, prev2 = chain_fm(self.taps, state.carry_vals, prev, block)
-        carry = packed_fir.next_carry(state.carry_vals, block,
-                                      self.packed_plan.carry_vals)
-        return MultifmFastState(
-            carry_vals=carry, prev_r=prev2[0], prev_i=prev2[1],
-            out_index=state.out_index + pcm.numel() // self.nr_channels,
-        ), pcm
+        return step_raw(self.taps, state, block)
 
     def step(self, state, block):
         """(state, block [N, 2] int16) -> (state, pcm [C, N//D] int16): a

@@ -55,10 +55,8 @@ class CostasChannelizer:
         self.device = torch.device(device)
         self.packed_plan = packed_fir.make_packed_fir_plan(
             lpf_taps, offsets_hz, sample_rate, decimation, gains)
-        w = self.packed_plan.omega_d.astype(np.float64)
-        omega_reduced = (w - 2 * np.pi * np.round(w / (2 * np.pi))).astype(
-            np.float32)
-        self.taps = ChainTaps(self.packed_plan, omega_reduced,
+        self.taps = ChainTaps(self.packed_plan,
+                              packed_fir.reduced_omega(self.packed_plan),
                               device=self.device)
         self.params = costas.make_costas_params(
             f_shift, alpha=alpha, beta=beta, e_max_q14=e_max_q14)

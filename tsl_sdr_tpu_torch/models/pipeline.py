@@ -4,7 +4,8 @@ Port of ``tsl_sdr_tpu/models/pipeline.py``: the production streaming
 engine with its drain worker and its checkpoint/restore, and the bit-exact
 engine (``exact=True``, see "Bit-exact engine" below). On the production
 tier every device stage of a block runs in one call,
-:meth:`_SizedProgram.dev_step`:
+:meth:`tsl_sdr_tpu_torch.parallel.pipeline.MeshEngine.step` (a pipeline
+without a mesh has a one-device mesh: one time span, one bank):
 
 1. widen 8-bit wire bytes;
 2. channelize + FM-demodulate (kernel K1, ``ops.chain``);
@@ -26,6 +27,15 @@ drain logic is the same code.
 
 Egress gating: a channel whose block raised no sync candidate sends only its
 flag and carried tail; its decoder does no work.
+
+Mesh (``mesh=``, production tier): the block's channels split over the
+mesh's channel axis and its samples over the time axis, each shard a
+:class:`_Bank` running :meth:`_SizedProgram.channelize` and
+:meth:`~_SizedProgram.resample` on its devices, the rest
+(:meth:`~_SizedProgram.finish`) over the whole block on the first device
+(:mod:`tsl_sdr_tpu_torch.parallel.pipeline`); the stream state and the
+outputs keep the layout of the pipeline without a mesh, so the drain, the
+checkpoints and the decoders do not change.
 
 Bit-exact engine: per block, the channelizer's exact step (kernel K5, the
 host rotator, the integer discriminator on the device) with
@@ -55,7 +65,7 @@ import torch
 
 from tsl_sdr_tpu_torch.models.ais import AisDecoder
 from tsl_sdr_tpu_torch.models.channelizer import (HostCopy, MultifmChain,
-                                                   widen_wire)
+                                                   step_raw, widen_wire)
 from tsl_sdr_tpu_torch.models.flex import FlexDecoder
 from tsl_sdr_tpu_torch.models.pocsag import PocsagDecoder
 from tsl_sdr_tpu_torch.models.resampler import ResamplerChain
@@ -130,46 +140,120 @@ def _leaf_meta(v) -> tuple:
     return [], "int64"
 
 
+def cat_on(parts: list, device) -> torch.Tensor:
+    """``parts`` concatenated on ``device``; one part is returned as it
+    is (moved, not copied, where it lies elsewhere)."""
+    if len(parts) == 1:
+        return parts[0].to(device)
+    return torch.cat([p.to(device) for p in parts])
+
+
+class _Bank:
+    """Channels ``[lo, hi)`` of a pipeline on one device, with K1's
+    constants for them (``taps``): one channel shard of a mesh
+    (:mod:`tsl_sdr_tpu_torch.parallel.pipeline`), or every channel on the
+    pipeline's device. Channel numbers stay the pipeline's; each group
+    keeps the pipeline's order, so a group's rows of consecutive banks
+    follow one another."""
+
+    def __init__(self, pipe: "ReceivePipeline", lo: int, hi: int, device,
+                 taps):
+        self.lo, self.hi = lo, hi
+        self.device = torch.device(device)
+        self.taps = taps
+
+        def mine(idxs):
+            return [i for i in idxs if lo <= i < hi]
+
+        self.rs_groups = {gid: mine(idxs) for gid, idxs in
+                          pipe._rs_groups.items() if mine(idxs)}
+        self.dc_items = [(i, p) for i, p in pipe._dc_items if lo <= i < hi]
+        self.pack_groups = {pgid: dict(pg, idx=mine(pg["idx"])) for pgid, pg
+                            in pipe._pack_groups.items() if mine(pg["idx"])}
+        self.raw_groups = {rgid: mine(idxs) for rgid, idxs in
+                           pipe._raw_groups.items() if mine(idxs)}
+
+        def rows(idxs, sub):
+            j = idxs.index(sub[0])
+            return slice(j, j + len(sub))
+
+        # each group's rows of the pipeline's state that are this bank's
+        # (ratio groups by gid, pack groups by protocol)
+        self.rows = {gid: rows(pipe._rs_groups[gid], sub)
+                     for gid, sub in self.rs_groups.items()}
+        self.rows.update({pgid: rows(pipe._pack_groups[pgid]["idx"],
+                                     pg["idx"])
+                          for pgid, pg in self.pack_groups.items()})
+        inv = [pipe.channels[i].invert for i in range(lo, hi)]
+        self.inv_mask = (torch.tensor(inv, device=self.device)[:, None]
+                         if any(inv) else None)
+
+    def state_of(self, st: dict) -> dict:
+        """This bank's part of the pipeline's stream state, on its
+        device (no copy where the device is the state's)."""
+        dev, lo, hi = self.device, self.lo, self.hi
+        ch = st["chain"]
+        return {
+            "chain": ch._replace(carry_vals=ch.carry_vals.to(dev),
+                                 prev_r=ch.prev_r[lo:hi].to(dev),
+                                 prev_i=ch.prev_i[lo:hi].to(dev)),
+            "rs": {gid: st["rs"][gid][self.rows[gid]].to(dev)
+                   for gid in self.rs_groups},
+            "dc": {i: dcb.DcBlockerState(*(v.to(dev) for v in st["dc"][i]))
+                   for i, _ in self.dc_items},
+            "tails": {pgid: st["tails"][pgid][self.rows[pgid]].to(dev)
+                      for pgid in self.pack_groups},
+        }
+
+    @staticmethod
+    def merge_states(banks: list, states: list, device) -> dict:
+        """The pipeline's stream state on ``device`` from its banks'
+        (the inverse of :meth:`state_of` over banks covering every
+        channel in order)."""
+        def cat(parts):
+            return cat_on(parts, device)
+
+        ch = states[0]["chain"]
+        return {
+            "chain": ch._replace(
+                carry_vals=ch.carry_vals.to(device),
+                prev_r=cat([s["chain"].prev_r for s in states]),
+                prev_i=cat([s["chain"].prev_i for s in states])),
+            "rs": {gid: cat([s["rs"][gid] for s in states if gid in s["rs"]])
+                   for gid in dict.fromkeys(g for s in states
+                                            for g in s["rs"])},
+            "dc": {i: dcb.DcBlockerState(*(v.to(device) for v in d))
+                   for s in states for i, d in s["dc"].items()},
+            "tails": {pgid: cat([s["tails"][pgid] for s in states
+                                 if pgid in s["tails"]])
+                      for pgid in dict.fromkeys(g for s in states
+                                                for g in s["tails"])},
+        }
+
+
 class _SizedProgram:
-    """Everything bound to one block length: per-ratio-group resampler
-    plans with ``block_in`` equal to the block's per-channel span (one
-    resample step consumes the block), their device taps, and the fused
-    per-block device step."""
+    """Everything bound to one block length and one bank of channels:
+    per-ratio-group resampler plans with ``block_in`` equal to the block's
+    per-channel span (one resample step consumes the block), their device
+    taps, and the per-block device step in its three stages
+    (:meth:`channelize`, :meth:`resample`, :meth:`finish`)."""
 
-    def __init__(self, pipe: "ReceivePipeline", n: int):
-        chain = pipe.chain
-        decim = chain.decimation
-        if n % pipe.block_quantum:
-            raise ValueError(f"block of {n} samples is not a multiple of "
-                             f"the {pipe.block_quantum}-sample quantum")
-        k_chain = n // decim
-        dev = pipe.device
-
-        self.plans = {}
-        self.rs_taps = {}
-        for gid in pipe._rs_groups:
-            i_, d_ = gid
-            plan = polyphase.make_resampler_plan(
-                q14.quantize_q14(pipe._rs_coeffs[gid]), i_, d_,
-                block_out_target=k_chain * i_ // d_,
-                align_k_row=False,  # n_in must equal k_chain exactly
-            )
-            if plan.block_in != k_chain:
-                raise ValueError(f"resampler plan consumes {plan.block_in} "
-                                 f"samples per block, the chain gives "
-                                 f"{k_chain}")
-            self.plans[gid] = plan
-            self.rs_taps[gid] = polyphase.plan_taps(plan, device=dev)
+    def __init__(self, pipe: "ReceivePipeline", n: int, bank: _Bank):
+        self.plans = pipe._rs_plans(n)
+        self.bank = bank
+        dev = bank.device
+        self.rs_taps = {gid: polyphase.plan_taps(self.plans[gid], device=dev)
+                        for gid in bank.rs_groups}
+        k_chain = n // pipe.chain.decimation
         self.k_out = {
             i: (self.plans[pipe._ratio_gid[i]].block_out
                 if pipe._ratio_gid[i] is not None else k_chain)
             for i in range(len(pipe.channels))
         }
-        self.rs_idx = {gid: torch.tensor(idxs, device=dev)
-                       for gid, idxs in pipe._rs_groups.items()}
-        inv = [s.invert for s in pipe.channels]
-        self.inv_mask = (torch.tensor(inv, device=dev)[:, None]
-                         if any(inv) else None)
+        # each group's rows of the bank's [C_bank, K] PCM
+        self.rs_idx = {gid: torch.tensor([i - bank.lo for i in idxs],
+                                         device=dev)
+                       for gid, idxs in bank.rs_groups.items()}
         self.pipe = pipe
         # combined pack payload layout, in ELEMENTS of the group's dtype:
         # bits kind [flags u8 | packed tail bytes | packed bits], pcm kind
@@ -182,40 +266,51 @@ class _SizedProgram:
 
     def init_rs_states(self) -> dict:
         return {gid: polyphase.init_resampler_carry(
-                    self.plans[gid], len(idxs), device=self.pipe.device)
-                for gid, idxs in self.pipe._rs_groups.items()}
+                    self.plans[gid], len(idxs), device=self.bank.device)
+                for gid, idxs in self.bank.rs_groups.items()}
 
-    def dev_step(self, st: dict, vals: torch.Tensor):
-        """One block on the device: (state, flat wire values) -> (state,
-        (pack_out, raw_out))."""
-        pipe = self.pipe
-        chain = pipe.chain
-        c = chain.nr_channels
-        vals = widen_wire(vals, pipe.wire_fmt)
-        chain_st, pcm_flat = chain._step_raw(st["chain"], vals)
-        pcm = pcm_flat.reshape(-1, c).T  # [C, K]
-        if self.inv_mask is not None:
+    def channelize(self, chain_st, vals: torch.Tensor):
+        """K1 and the polarity flip: (chain state, flat int16 values) ->
+        (state, pcm [C_bank, K] int16)."""
+        bank = self.bank
+        chain_st, pcm_flat = step_raw(bank.taps, chain_st, vals)
+        pcm = pcm_flat.reshape(-1, bank.hi - bank.lo).T  # [C, K]
+        if bank.inv_mask is not None:
             flipped = torch.clamp(-pcm.to(torch.int32), -32768,
                                   32767).to(torch.int16)
-            pcm = torch.where(self.inv_mask, flipped, pcm)
+            pcm = torch.where(bank.inv_mask, flipped, pcm)
+        return chain_st, pcm
+
+    def resample(self, rs: dict, pcm: torch.Tensor):
+        """Each ratio group through its resampler, one launch for the
+        group's rows: -> (carries, {channel: its row after the
+        resampler})."""
+        bank = self.bank
         ch_rows = {}
         rs2 = {}
-        for gid, idxs in pipe._rs_groups.items():
+        for gid, idxs in bank.rs_groups.items():
             rows = pcm[self.rs_idx[gid]]  # [G, K]
             rs2[gid], outs = polyphase.resample_step(
-                self.plans[gid], st["rs"][gid], rows, self.rs_taps[gid])
+                self.plans[gid], rs[gid], rows, self.rs_taps[gid])
             for j, i in enumerate(idxs):
                 ch_rows[i] = outs[j]
-        for i in range(len(pipe.channels)):
+        for i in range(bank.lo, bank.hi):
             if i not in ch_rows:
-                ch_rows[i] = pcm[i]
+                ch_rows[i] = pcm[i - bank.lo]
+        return rs2, ch_rows
+
+    def finish(self, dc: dict, tails: dict, ch_rows: dict):
+        """DC block, sign slice, sync prefilter and bit pack: -> (DC
+        states, prefilter tails, (pack_out, raw_out))."""
+        pipe = self.pipe
+        bank = self.bank
         dc2 = {}
-        for i, coeff in pipe._dc_items:
+        for i, coeff in bank.dc_items:
             dc2[i], ch_rows[i] = dcb.dc_blocker_step_fast(
-                st["dc"][i], to_int16(ch_rows[i]), coeff)
+                dc[i], to_int16(ch_rows[i]), coeff)
         tails2 = {}
         pack_out = {}
-        for pgid, pg in pipe._pack_groups.items():
+        for pgid, pg in bank.pack_groups.items():
             tail = pipe._tail_bits[pgid]
             rows = torch.stack([ch_rows[i] for i in pg["idx"]])
             if pg["kind"] == "pcm":
@@ -225,7 +320,7 @@ class _SizedProgram:
                 rows = to_int16(rows)
                 predu = (rows >= 0).to(torch.uint8)
                 k_out = rows.shape[1]
-                full = torch.cat([st["tails"][pgid], predu], dim=1)
+                full = torch.cat([tails[pgid], predu], dim=1)
                 flags = sync_prefilter.flex_any_candidate(full, k_out)
                 tails2[pgid] = full[:, -tail:].contiguous()
                 # ONE int16 buffer: [flag | last TAIL pcm | pcm rows]
@@ -240,7 +335,7 @@ class _SizedProgram:
             pred = (rows > 0) if pg["is_gt"] else (rows < 0)
             predu = pred.to(torch.uint8)
             k_out = predu.shape[1]
-            full = torch.cat([st["tails"][pgid], predu], dim=1)
+            full = torch.cat([tails[pgid], predu], dim=1)
             if pgid == "pocsag":
                 flags = sync_prefilter.pocsag_any_candidate(full, k_out)
             else:
@@ -253,9 +348,8 @@ class _SizedProgram:
                  sync_prefilter.packbits(tails2[pgid]),
                  sync_prefilter.packbits(predu)], dim=1)
         raw_out = {rgid: to_int16(torch.stack([ch_rows[i] for i in idxs]))
-                   for rgid, idxs in pipe._raw_groups.items()}
-        st2 = {"chain": chain_st, "rs": rs2, "dc": dc2, "tails": tails2}
-        return st2, (pack_out, raw_out)
+                   for rgid, idxs in bank.raw_groups.items()}
+        return dc2, tails2, (pack_out, raw_out)
 
 
 class ReceivePipeline:
@@ -277,6 +371,13 @@ class ReceivePipeline:
     wire_fmt : input wire format; 8-bit formats take raw wire bytes and
         widen on the device
     device : "cuda" (default) or "cpu"; CUDA must be present when asked for
+    mesh : a :class:`~tsl_sdr_tpu_torch.parallel.mesh.Mesh` to run the
+        production tier's blocks over (channel shards and time spans, see
+        :mod:`tsl_sdr_tpu_torch.parallel.pipeline`), which decodes what the
+        pipeline without one decodes; the pipeline's state and outputs
+        then live on the first device of this process's first time row,
+        which replaces ``device``. The bit-exact tier ignores the mesh
+        and runs on that one device, as the JAX package's does.
     drain_async : drain blocks (device->host wait, bit unpack, decoder
         scans) on a worker thread, so block k's drain overlaps block k+1's
         upload and dispatch. Messages may then surface on a later push()
@@ -296,7 +397,10 @@ class ReceivePipeline:
                  block_size: int | None = None,
                  inflight_depth: int = 2, ais_packet_hook=None,
                  wire_fmt: str = "cs16", device="cuda",
-                 drain_async: bool = False):
+                 drain_async: bool = False, mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.devices[mesh.local_rows[0], 0]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but CUDA is not available")
@@ -366,6 +470,12 @@ class ReceivePipeline:
                 spec.protocol, spec.center_freq_hz, self._ais_packet_hook))
 
         self._setup_stream(block_size)
+        self._engine = None
+        if not exact:
+            from tsl_sdr_tpu_torch.parallel.mesh import Mesh
+            from tsl_sdr_tpu_torch.parallel.pipeline import MeshEngine
+
+            self._engine = MeshEngine(self, mesh or Mesh([[self.device]]))
 
     @property
     def primed(self) -> bool:
@@ -441,18 +551,49 @@ class ReceivePipeline:
         if min_n:
             self.block_size = max(self.block_size, -(-min_n // q) * q)
 
-        self._programs: dict[int, _SizedProgram] = {}
+        self._programs: dict = {}
+        self._plans: dict = {}
+        self._bank = _Bank(self, 0, len(self.channels), self.device,
+                           self.chain.taps)
         self._stream = None
         self._xstream = None
         self._last_stream_stats = None
         self._pending_prefix = np.zeros((0, 2), self._wire_dtype)
-        self._uploads = []   # pinned staging ring: [buffer, event] pairs
-        self._upload_next = 0
+        # pinned staging rings: (values, dtype, device) -> [next slot,
+        # [buffer, event] pairs]
+        self._uploads = {}
 
-    def _program(self, n: int) -> _SizedProgram:
-        if n not in self._programs:
-            self._programs[n] = _SizedProgram(self, n)
-        return self._programs[n]
+    def _rs_plans(self, n: int) -> dict:
+        """Each ratio group's resampler plan for blocks of ``n`` samples,
+        its ``block_in`` the block's per-channel span."""
+        if n not in self._plans:
+            k_chain = n // self.chain.decimation
+            plans = {}
+            for gid in self._rs_groups:
+                i_, d_ = gid
+                plan = polyphase.make_resampler_plan(
+                    q14.quantize_q14(self._rs_coeffs[gid]), i_, d_,
+                    block_out_target=k_chain * i_ // d_,
+                    align_k_row=False)  # n_in must equal k_chain exactly
+                if plan.block_in != k_chain:
+                    raise ValueError(
+                        f"resampler plan consumes {plan.block_in} samples "
+                        f"per block, the chain gives {k_chain}")
+                plans[gid] = plan
+            self._plans[n] = plans
+        return self._plans[n]
+
+    def _program(self, n: int, bank: _Bank | None = None) -> _SizedProgram:
+        """The program for blocks of ``n`` samples of ``bank`` (default:
+        every channel on the pipeline's device)."""
+        bank = bank or self._bank
+        if n % self.block_quantum:
+            raise ValueError(f"block of {n} samples is not a multiple of "
+                             f"the {self.block_quantum}-sample quantum")
+        key = (n, id(bank))
+        if key not in self._programs:
+            self._programs[key] = _SizedProgram(self, n, bank)
+        return self._programs[key]
 
     def stream_reset(self):
         """Forget all streaming state (device carries, input buffer,
@@ -538,6 +679,9 @@ class ReceivePipeline:
             "fetched": np.zeros(len(self.channels), np.int64),
             "upload_elems": 0,
             "upload_bytes": 0,
+            # look-back rows each time span of a mesh took from the span
+            # before it (host slices, or messages between ranks)
+            "halo_bytes": 0,
             # a pack group that fetched rows last block is "hot": its next
             # payload streams to the host whole; cold groups send only the
             # flags + tail head (egress gating)
@@ -631,17 +775,20 @@ class ReceivePipeline:
     @property
     def stream_stats(self) -> dict:
         """{"blocks": drained blocks, "fetched": per-channel full-row fetch
-        counts, "upload_elems", "upload_bytes"}."""
+        counts, "upload_elems", "upload_bytes", "halo_bytes"}: the
+        wire values and bytes this process uploaded, and the bytes of
+        look-back rows a mesh's time spans took from their neighbours."""
         s = self._stream
         if s is None:
             if self._last_stream_stats is not None:
                 return dict(self._last_stream_stats)
             return {"blocks": 0,
                     "fetched": np.zeros(len(self.channels), np.int64),
-                    "upload_elems": 0, "upload_bytes": 0}
+                    "upload_elems": 0, "upload_bytes": 0, "halo_bytes": 0}
         return {"blocks": s["blocks"], "fetched": s["fetched"].copy(),
                 "upload_elems": s["upload_elems"],
-                "upload_bytes": s["upload_bytes"]}
+                "upload_bytes": s["upload_bytes"],
+                "halo_bytes": s["halo_bytes"]}
 
     def push(self, iq) -> list:
         """Feed wideband IQ (any length); decode what completes.
@@ -716,42 +863,43 @@ class ReceivePipeline:
                 tm[key] = tm.get(key, 0.0) + (t1 - t0)
         return t1
 
-    def _upload(self, flat: np.ndarray) -> torch.Tensor:
-        """Host block -> device tensor. On the card: through a ring of two
-        pinned staging buffers, copied with ``non_blocking=True``; a buffer
-        is refilled only after its previous copy has completed."""
-        if self.device.type == "cpu":
+    def _upload(self, flat: np.ndarray, device=None) -> torch.Tensor:
+        """Host values -> tensor on ``device`` (default the pipeline's).
+        On the card: through a ring of two pinned staging buffers for each
+        length and device, copied with ``non_blocking=True``; a buffer is
+        refilled only after its previous copy has completed."""
+        device = self.device if device is None else torch.device(device)
+        if device.type == "cpu":
             return torch.from_numpy(flat)
-        n = flat.shape[0]
-        if not self._uploads or self._uploads[0][0].numel() != n:
-            self._uploads = [
-                [torch.empty(n, dtype=_TORCH_WIRE[flat.dtype],
-                             pin_memory=True), None] for _ in range(2)]
-        slot = self._uploads[self._upload_next]
-        self._upload_next = (self._upload_next + 1) % len(self._uploads)
+        key = (flat.shape[0], flat.dtype, device)
+        if key not in self._uploads:
+            self._uploads[key] = [0, [
+                [torch.empty(flat.shape[0], dtype=_TORCH_WIRE[flat.dtype],
+                             pin_memory=True), None] for _ in range(2)]]
+        ring = self._uploads[key]
+        slot = ring[1][ring[0]]
+        ring[0] = (ring[0] + 1) % len(ring[1])
         if slot[1] is not None:
             slot[1].synchronize()
         np.copyto(slot[0].numpy(), flat)
-        vals = slot[0].to(self.device, non_blocking=True)
+        vals = slot[0].to(device, non_blocking=True)
         slot[1] = torch.cuda.Event()
-        slot[1].record()
+        slot[1].record(torch.cuda.current_stream(device))
         return vals
 
     def _dispatch(self, block: np.ndarray, valid_n: int | None = None):
         tm = self.timing
-        if tm is not None:
-            t0 = time.perf_counter()
         s = self._stream
         prog = self._program(block.shape[0])
         flat = np.ascontiguousarray(block).reshape(-1)
-        vals = self._upload(flat)
-        s["upload_elems"] += flat.shape[0]
-        s["upload_bytes"] += flat.nbytes
+        # uploads, K1 and the resamplers a time span at a time, the rest
+        # on the first device (one span and one bank without a mesh). Over
+        # a multi-process mesh this is where the ranks' messages and
+        # gather happen: here, on the dispatch thread, in the same order on
+        # every rank, never on the drain worker
+        s["st"], outs = self._engine.step(s["st"], flat, s)
         if tm is not None:
-            t0 = self._tick("upload_s", t0)
-        s["st"], outs = prog.dev_step(s["st"], vals)
-        if tm is not None:
-            t0 = self._tick("dispatch_s", t0)
+            t0 = time.perf_counter()
         # start device->host copies now so they overlap the next block's
         # compute. Hot groups stream their whole payload; cold (idle)
         # groups only the small flags+tail head (egress gating).

@@ -156,6 +156,30 @@ def with_taps_i16(plan: PackedFirPlan, w: np.ndarray) -> PackedFirPlan:
         for i in range(plan.cr_rows + 1)))
 
 
+def reduced_omega(plan: PackedFirPlan) -> np.ndarray:
+    """The per-output derotation increment reduced to (-pi, pi] in
+    float64, as float32: K1's constants for ``plan``'s channels."""
+    w = plan.omega_d.astype(np.float64)
+    return (w - 2 * np.pi * np.round(w / (2 * np.pi))).astype(np.float32)
+
+
+def sub_plan(plan: PackedFirPlan, lo: int, hi: int) -> PackedFirPlan:
+    """The plan of channels ``[lo, hi)`` alone: their tap columns of every
+    chunk (the ``[re/im, j, c]`` layout cut at ``c``), increments and
+    derotation (the JAX package's per-shard ``plan._replace``,
+    ``tsl_sdr_tpu/parallel/channelizer.py:221-234``)."""
+    def cut(chunks):
+        return tuple(np.ascontiguousarray(
+            np.asarray(w).reshape(plan.row, 2, plan.opr, plan.nr_channels)
+            [..., lo:hi].reshape(plan.row, 2 * plan.opr * (hi - lo)))
+            for w in chunks)
+
+    return plan._replace(
+        w_chunks=cut(plan.w_chunks), w_chunks_i16=cut(plan.w_chunks_i16),
+        rot_incr_i32=plan.rot_incr_i32[lo:hi].copy(),
+        omega_d=plan.omega_d[lo:hi].copy(), nr_channels=hi - lo)
+
+
 def tap_support(plan: PackedFirPlan) -> np.ndarray:
     """bool ``[win, 2*halfcols]``: where the plan's layout may hold a tap.
     Phase ``j``'s columns (both halves, every channel) read the ``2T``
