@@ -155,10 +155,26 @@ row):
    rank 0 writes phase 4's messages, rank 1 nothing, each rank's upload
    and halo bytes a block; (f) the pager pipeline's wall a block without a
    mesh, on (1, 1) and on (2, 2), in turns, 6 trials each: the sharding's
-   overhead on one card.
+   overhead on one card;
+20. the port's last surface: (a) ``ReceivePipeline.process_capture(iq,
+   device_decode=False)``, the stage-by-stage path, on phase 4's capture
+   (K1, K3 and the exact DC kernel must launch) and at decimation 50 (K1
+   and K4): the messages push/flush decodes, every burst; (b)
+   ``multifm-torch`` on ``etc/multifm_rtlsdr_8ch.json`` (phase 16's
+   capture), both tiers, with ``TSL_DUMP_LPF`` and
+   ``TSL_DUMP_FILTER_COEFFICIENTS`` set to files: the dumps equal what the
+   plan builders write for the same config on the CPU, and the PCM equals
+   the run without them byte for byte; (c) ``pipeline-torch -V`` and
+   ``design-filter-torch 16 25 0.4`` as processes: exit 0, the second
+   printing ``resampler_filter_json(16, 25, 0.4)``; (d) the weak-scaling
+   witness (``parallel/_mh_scaling_worker.py``) at 1 and 2 processes on
+   cuda:0, a pager block's samples a process: the halo bytes the ranks
+   counted equal ``dcn_halo_bytes``, each rank uploads 1/P of the global
+   block (walls: overhead of ranks sharing one card, never scaling); (e)
+   the nine top-level names resolve.
 
-Each path of phases 4, 8, 9, 10, 14, 15, 16, 17, 18 and 19 and each run
-of phase 12 runs with the
+Each path of phases 4, 8, 9, 10, 14, 15, 16, 17, 18, 19 and 20 and each
+run of phase 12 runs with the
 kernels' launch counts set to 0 just before it and read just after; a
 kernel of the path that never launched fails the run. jax, jaxlib and
 the JAX package (``tsl_sdr_tpu``) are made unimportable first, and none
@@ -2260,7 +2276,7 @@ def wide_kernels(device) -> dict:
 
     res = {"err": 0}
     for nr_ch in WIDE_CHANNELS:
-        chain = MultifmChain(*bench_bank(nr_ch), device=device)
+        chain = MultifmChain(*bench_bank(nr_ch), exact=False, device=device)
         plan = chain.packed_plan
         require(chain.grouped_plan is not None and chain.taps.grouped,
                 f"{nr_ch} channels: the chain did not pick the grouped form")
@@ -2809,13 +2825,13 @@ def mesh_channelizer(iq, totals: dict) -> dict:
 
     cases = [("pager", MultifmChain(pager.lpf_taps(), pager.OFFSETS_HZ,
                                     pager.FS, pager.DECIMATION,
-                                    device="cuda"),
+                                    exact=False, device="cuda"),
               iq[:4_177_920], MESH_SHAPES)]
     lpf, offs, fs, decim = bench_bank(64)
     wide = np.random.default_rng(19).integers(
         -9000, 9000, size=(WIDE_BLOCK, 2), dtype=np.int64).astype(np.int16)
     cases.append(("64 channels", MultifmChain(lpf, offs, fs, decim,
-                                              device="cuda"),
+                                              exact=False, device="cuda"),
                   wide, ((1, 1), (2, 2))))
     res = {}
 
@@ -3219,8 +3235,280 @@ def mesh_phase(pager, iq, expected, totals: dict) -> dict:
     return res
 
 
+# -- phase 20: the host path, the dumps, the last CLIs and the witness -----
+
+DUMP_VARS = ("TSL_DUMP_LPF", "TSL_DUMP_FILTER_COEFFICIENTS")
+TOP_LEVEL = ("MultifmChain", "ResamplerChain", "ReceivePipeline",
+             "ChannelSpec", "PocsagDecoder", "FlexDecoder", "AisDecoder",
+             "CostasChannelizer", "MultifmConfig")
+
+
+@contextlib.contextmanager
+def dump_env(paths: dict):
+    """Both dump variables set to files (``paths``: variable -> path)
+    inside the block, as they were after it."""
+    import os
+
+    saved = {v: os.environ.get(v) for v in DUMP_VARS}
+    os.environ.update({v: str(p) for v, p in paths.items()})
+    try:
+        yield
+    finally:
+        for v, old in saved.items():
+            if old is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = old
+
+
+def dump_paths(tmp: Path, tag: str) -> dict:
+    return {v: tmp / f"{tag}_{v}.txt" for v in DUMP_VARS}
+
+
+def read_dumps(paths: dict) -> dict:
+    """Each dump file's bytes (None where nothing was written)."""
+    return {v: p.read_bytes() if p.exists() else None
+            for v, p in paths.items()}
+
+
+def host_paths(pager, iq, expected, device, totals: dict) -> dict:
+    """(a) ``process_capture(iq, device_decode=False)``, the stage-by-stage
+    path, at the pager deployment on phase 4's capture (K1, K3 and the
+    exact DC kernel must launch) and at decimation 50 (K1 and K4): the
+    messages push/flush decodes on the same capture, every burst."""
+    from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
+
+    res = {}
+    cases = (("pager", pager.lpf_taps(), pager.DECIMATION,
+              pager.channel_specs(ChannelSpec),
+              ("chain_fm", "row_resample", "dc_block_exact")),
+             ("decimation 50", pager.dec50_lpf_taps(),
+              pager.DEC50_DECIMATION, pager.dec50_channel_specs(ChannelSpec),
+              ("chain_fm", "frame_resample")))
+    for name, lpf, decim, specs, kernels in cases:
+        pipe = ReceivePipeline(lpf, pager.CENTER_HZ, pager.FS, decim, specs,
+                               device=device)
+        require_native(f"host path ({name})", pipe.decoder_tiers)
+        if name == "pager":
+            cap, exp = iq, expected
+        else:
+            starts = [200_000 + k * 1_300_000 for k in range(len(specs))]
+            cap, exp = pager.capture(2 * pipe.block_size + TAIL_SAMPLES,
+                                     starts, seed=8)
+        want = sorted((s.center_freq_hz, c, t)
+                      for s, e in zip(specs, exp) for c, t in e)
+
+        def keys(results, specs=specs):
+            return sorted((f, c, t.rstrip("\0"))
+                          for f, c, t in message_keys(results, specs))
+
+        pushed = keys(pipe.process_capture(cap))
+
+        def host(pipe=pipe, cap=cap):
+            t0 = time.perf_counter()
+            out = pipe.process_capture(cap, device_decode=False)
+            _sync(device)
+            return out, time.perf_counter() - t0
+
+        out, wall = on_path(f"the {name} host path (device_decode=False)",
+                            kernels, host, totals)
+        got = keys(out)
+        require(got == pushed,
+                f"{name} host path decoded {got}, push/flush {pushed}")
+        require(got == want, f"{name} host path decoded {got}, sent {want}")
+        log(f"(a) {name}: process_capture(device_decode=False) decoded "
+            f"{len(got)} of {len(want)} bursts == push/flush, "
+            f"{cap.shape[0]} samples in {wall:.3f} s")
+        res[name] = {"wall_s": wall, "samples": int(cap.shape[0]),
+                     "messages": len(got)}
+    return res
+
+
+def multifm_dumps(device, tmp: Path, totals: dict) -> dict:
+    """(b) ``multifm-torch`` on etc/multifm_rtlsdr_8ch.json (phase 16's
+    capture, python runtime) with both dump variables set to files, both
+    tiers: the dumps equal what the port's plan builders write for the same
+    config on the CPU in this process (multifm builds no resampler, so the
+    phase-filter file stays unwritten in both), and the PCM equals the
+    same run without the variables byte for byte."""
+    import numpy as np
+
+    from tsl_sdr_tpu_torch.cli import multifm
+    from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
+    from tsl_sdr_tpu_torch.utils.config import MultifmConfig
+
+    base = HERE / "etc" / "multifm_rtlsdr_8ch.json"
+    cfg = MultifmConfig.load(base)
+    wire, _ = multifm_capture(cfg)
+    wire_path = tmp / "mf8_dump.u8"
+    wire.tofile(wire_path)
+    nch = len(cfg.channels)
+
+    def run(tag, flags):
+        over = tmp / f"mfd_{tag}.json"
+        over.write_text(json.dumps({"channels": [
+            {"outFifo": str(tmp / f"mfd_{tag}_ch{k}.pcm"),
+             "chanCenterFreq": ch.chan_center_freq}
+            for k, ch in enumerate(cfg.channels)]}))
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = multifm.main([str(base), str(over), "--device", device,
+                               "--iq-file", str(wire_path), "--iq-format",
+                               "rtl_u8", "--runtime", "python", *flags])
+        require(rc == 0, f"multifm-torch {tag} exited {rc}: "
+                f"{err.getvalue()}")
+        return [np.fromfile(tmp / f"mfd_{tag}_ch{k}.pcm", np.int16)
+                for k in range(nch)]
+
+    res = {}
+    for tier, flags, kernels in (("exact", ["--exact"], ("exact_fir",)),
+                                 ("production", [], ("chain_fm",))):
+        plain = run(f"{tier}_nodump", flags)
+        paths = dump_paths(tmp, f"mf_{tier}")
+        with dump_env(paths):
+            pcm = on_path(f"multifm-torch {tier} with the dumps", kernels,
+                          lambda: run(f"{tier}_dump", flags), totals)
+        got = read_dumps(paths)
+        cpu_paths = dump_paths(tmp, f"cpu_{tier}")
+        with dump_env(cpu_paths):
+            MultifmChain.from_config(cfg, exact=tier == "exact",
+                                     device="cpu")
+        want = read_dumps(cpu_paths)
+        require(got == want, f"multifm-torch {tier}: the dumps differ from "
+                f"the plan builders' on the CPU")
+        lpf = got["TSL_DUMP_LPF"]
+        require(lpf is not None and lpf.count(b"lpf_shifted_") == nch
+                and lpf.count(b"complex(") == nch * len(cfg.lpf_taps),
+                f"multifm-torch {tier}: LPF dump of {len(lpf or b'')} B")
+        require(got["TSL_DUMP_FILTER_COEFFICIENTS"] is None,
+                f"multifm-torch {tier} wrote a phase-filter dump")
+        for k in range(nch):
+            require(pcm[k].size > 0
+                    and pcm[k].tobytes() == plain[k].tobytes(),
+                    f"multifm-torch {tier} channel {k}: PCM with the dumps "
+                    f"differs from the run without them")
+        log(f"(b) multifm-torch {tier}: LPF dump {len(lpf)} B == the CPU "
+            f"plan builders' ({nch} channels x {len(cfg.lpf_taps)} taps); "
+            f"PCM == the run without the dumps on all {nch} channels")
+        res[tier] = {"lpf_dump_bytes": len(lpf)}
+    return res
+
+
+def run_blocked(argv, timeout: float = 300.0):
+    """``python -m <argv>`` with jax and the JAX package made unimportable
+    first: (returncode, stdout, stderr)."""
+    code = ("import runpy, sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n" for m in BLOCKED)
+            + f"sys.path.insert(0, {str(HERE)!r})\n"
+            "sys.argv = sys.argv[1:]\n"
+            "runpy.run_module(sys.argv[0], run_name='__main__')\n")
+    res = subprocess.run([sys.executable, "-c", code, *argv], cwd=HERE,
+                         capture_output=True, text=True, timeout=timeout)
+    return res.returncode, res.stdout, res.stderr
+
+
+def last_clis() -> dict:
+    """(c) ``pipeline-torch -V`` and ``design-filter-torch 16 25 0.4`` as
+    processes: both exit 0, the second prints the port's
+    ``resampler_filter_json(16, 25, 0.4)``."""
+    from tsl_sdr_tpu_torch.utils.filter_design import resampler_filter_json
+
+    rc, out, err = run_blocked(["tsl_sdr_tpu_torch.cli.pipeline", "-V"])
+    require(rc == 0 and out.startswith("pipeline-torch "),
+            f"pipeline-torch -V: rc {rc}, {out!r} {err[-2000:]}")
+    version = out.strip()
+    rc, out, err = run_blocked(["tsl_sdr_tpu_torch.cli.design_filter", "16",
+                                "25", "0.4"])
+    want = resampler_filter_json(16, 25, 0.4)
+    require(rc == 0 and out == want + "\n",
+            f"design-filter-torch 16 25 0.4: rc {rc}, {len(out)} B of "
+            f"output, {err[-2000:]}")
+    taps = json.loads(out)["rationalResampler"]["lpfCoeffs"]
+    log(f"(c) {version!r}, exit 0; design-filter-torch 16 25 0.4: exit 0, "
+        f"{len(out)} B of JSON == resampler_filter_json(16, 25, 0.4) "
+        f"({len(taps)} coefficients)")
+    return {"version": version}
+
+
+def witness_runs() -> dict:
+    """(d) The weak-scaling witness at 1 and 2 processes on cuda:0 (the
+    selftest chain, 2 channels, a pager block's 4,177,920 samples a
+    process, 3 reps): the halo bytes the ranks counted equal
+    ``dcn_halo_bytes``, each rank uploads its own span (1/P of the global
+    block), K1 launched every call. The walls are the overhead of ranks
+    sharing one card, never a scaling figure."""
+    from tsl_sdr_tpu_torch.parallel import multihost
+
+    plan = multihost.selftest_chain(nr_channels=2).packed_plan
+    rows = 2 * 4_177_920 // plan.row
+    res = {}
+    for n in (1, 2):
+        t0 = time.perf_counter()
+        recs = multihost.run_scaling_witness(
+            n, device="cuda", reps=3, rows_per_shard=rows, timeout=300.0)
+        wall = time.perf_counter() - t0
+        want = multihost.dcn_halo_bytes(plan, n)
+        for r in recs:
+            require(r["device"] == "cuda:0", f"witness rank on {r['device']}")
+            require(r["dcn_halo_bytes_per_block"] == want
+                    == r["dcn_halo_bytes_formula"],
+                    f"witness at {n}: counted {r['dcn_halo_bytes_per_block']}"
+                    f" halo bytes, dcn_halo_bytes {want}")
+            require(r["upload_elems_per_host"] * n
+                    == 2 * r["global_block_samples"],
+                    f"witness at {n}: rank {r['pid']} uploaded "
+                    f"{r['upload_elems_per_host']} of "
+                    f"{2 * r['global_block_samples']} values")
+            require(r["chain_fm_launches"] == 4,
+                    f"witness at {n}: K1 launched {r['chain_fm_launches']} "
+                    "times in 4 calls")
+        log(f"(d) witness, {n} process(es) on cuda:0: halo bytes a block "
+            f"counted {recs[0]['dcn_halo_bytes_per_block']} == "
+            f"dcn_halo_bytes {want} (sent by rank "
+            f"{[r['halo_bytes_sent_per_block'] for r in recs]}); upload "
+            f"{recs[0]['upload_elems_per_host'] * 2} B a rank of a "
+            f"{recs[0]['global_block_samples'] * 4} B global block; step "
+            f"wall medians ms {[r['step_ms_median'] for r in recs]} "
+            f"(overhead of ranks sharing one card, not scaling); "
+            f"{wall:.1f} s with start-up")
+        res[n] = {"halo_bytes": want,
+                  "upload_bytes": recs[0]["upload_elems_per_host"] * 2,
+                  "step_ms_median": [r["step_ms_median"] for r in recs],
+                  "wall_s": wall}
+    return res
+
+
+def top_level_names() -> list:
+    """(e) The nine top-level names resolve with jax and the JAX package
+    blocked."""
+    import tsl_sdr_tpu_torch
+
+    for name in TOP_LEVEL:
+        obj = getattr(tsl_sdr_tpu_torch, name)
+        require(obj.__name__ == name
+                and obj.__module__.startswith("tsl_sdr_tpu_torch."),
+                f"tsl_sdr_tpu_torch.{name} is {obj!r}")
+    require(all(sys.modules.get(m, None) is None for m in BLOCKED),
+            "a blocked module loaded")
+    log(f"(e) tsl_sdr_tpu_torch.{{{', '.join(TOP_LEVEL)}}} resolve with "
+        f"{', '.join(BLOCKED)} blocked")
+    return list(TOP_LEVEL)
+
+
+def surface_phase(pager, iq, expected, device, totals: dict) -> dict:
+    """Phase 20: the host path, the coefficient dumps, the last CLIs, the
+    weak-scaling witness and the top-level names."""
+    res = {"host": host_paths(pager, iq, expected, device, totals)}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["dumps"] = multifm_dumps(device, Path(tmp), totals)
+    res["clis"] = last_clis()
+    res["witness"] = witness_runs()
+    res["names"] = top_level_names()
+    return res
+
+
 def smoke(device: str) -> dict:
-    """Phases 2-19 on ``device``; returns the kernels' summary."""
+    """Phases 2-20 on ``device``; returns the kernels' summary."""
     import torch
 
     from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
@@ -3286,6 +3574,7 @@ def smoke(device: str) -> dict:
                          pipe.block_size, plan.carry_len)
     exact = exact_phases(pipe, iq, expected, device, totals)
     mesh = mesh_phase(pager, iq, expected, totals)
+    surface = surface_phase(pager, iq, expected, device, totals)
     del iq
     wide = wide_phase(device, totals)
     wide_k = wide["kernels"]
@@ -3304,6 +3593,7 @@ def smoke(device: str) -> dict:
         "k4": front["k4"],
         "costas": costas,
         "mesh": mesh,
+        "surface": surface,
         "kernels": [
             {"name": "chain_fm", "route": "cuda",
              "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
@@ -3446,6 +3736,14 @@ def main() -> int:
             f"{st['halo_bytes_per_block']:.0f} halo B a block "
             f"({st['blocks']} blocks)")
     log(f"{card} | mesh pipelines: {json.dumps(mesh['pipelines'])}")
+    surface = summary["surface"]
+    for name, r in surface["host"].items():
+        log(f"{card} | host path (device_decode=False), {name}: "
+            f"{json.dumps(r)}")
+    for n, r in surface["witness"].items():
+        log(f"{card} | weak-scaling witness, {n} process(es) on cuda:0 "
+            f"(bytes; walls are the overhead of ranks sharing one card, "
+            f"not scaling): {json.dumps(r)}")
     for kernel in ("k3", "k4"):
         for name, k in summary[kernel].items():
             log(f"{card} | {kernel.upper()} {name}: {json.dumps(k)}")

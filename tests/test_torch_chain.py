@@ -50,7 +50,7 @@ def _iq(n, seed):
 def test_plain_chain_matches_xla_tier(case):
     fs, d, lpf, offs = CASES[case]
     ref = JaxChain(lpf, offs, fs, d, exact=False, backend="xla")
-    got = MultifmChain(lpf, offs, fs, d, device="cpu")
+    got = MultifmChain(lpf, offs, fs, d, exact=False, device="cpu")
     q, c_len = got.block_quantum, got.carry_len
     x = _iq(c_len + 50 * q, 1)
     js = ref.init_state(prefix=x[:c_len])
@@ -80,7 +80,7 @@ def test_plain_chain_matches_pallas_interpret(rows):
     """rows = 96: tile-aligned (the zero-copy kernel, _chain_call_v2);
     rows = 87: ragged (the padded kernel, _chain_call)."""
     fs, d, lpf, offs = CASES["2ch_d16"]
-    got = MultifmChain(lpf, offs, fs, d, device="cpu")
+    got = MultifmChain(lpf, offs, fs, d, exact=False, device="cpu")
     plan = got.packed_plan
     pal = PallasChain(plan, got._omega_reduced, interpret=True,
                       precision="highest")
@@ -110,7 +110,7 @@ def test_plain_chain_matches_pallas_interpret(rows):
 
 def test_plain_chain_block_boundary_invariance():
     fs, d, lpf, offs = CASES["4ch_pager"]
-    ch = MultifmChain(lpf, offs, fs, d, device="cpu")
+    ch = MultifmChain(lpf, offs, fs, d, exact=False, device="cpu")
     q, c_len = ch.block_quantum, ch.carry_len
     x = torch.from_numpy(_iq(c_len + 24 * q, 3))
     _, whole = ch._step_raw(ch.init_state(prefix=x[:c_len].numpy()),
@@ -130,7 +130,7 @@ def test_ragged_last_tile_matches_xla():
     multiple of the kernel tile (65,280 rows at 127: last tile 2 rows);
     here at 2 channels and a block of 1,018 rows (8 tiles + 2)."""
     fs, d, lpf, offs = CASES["4ch_pager"]
-    ch = MultifmChain(lpf, offs[:2], fs, d, device="cpu")
+    ch = MultifmChain(lpf, offs[:2], fs, d, exact=False, device="cpu")
     tr = ch.taps.tile_rows
     rows = 8 * tr + 2
     assert rows % tr == 2
@@ -162,7 +162,7 @@ def test_tile_rows_fit_the_kernel(row, cr, hc):
 
 def test_cpu_tensor_runs_plain_version():
     fs, d, lpf, offs = CASES["2ch_d16"]
-    ch = MultifmChain(lpf, offs, fs, d, device="cpu")
+    ch = MultifmChain(lpf, offs, fs, d, exact=False, device="cpu")
     before = k1.chain_fm.launches
     st = ch.init_state()
     block = torch.from_numpy(_iq(4 * ch.block_quantum, 5).reshape(-1))

@@ -71,10 +71,11 @@ def test_chain_kernel_matches_plain(cuda, tiles, extra, decim):
     at decimation 50 (3,200-value rows: 16-row tiles, taps read from L2)."""
     if decim == 32:
         ch = MultifmChain(pager.lpf_taps(), pager.OFFSETS_HZ[::2], pager.FS,
-                          pager.DECIMATION, device=cuda)
+                          pager.DECIMATION, exact=False, device=cuda)
     else:
         ch = MultifmChain(pager.dec50_lpf_taps(), pager.OFFSETS_HZ[:6],
-                          pager.FS, pager.DEC50_DECIMATION, device=cuda)
+                          pager.FS, pager.DEC50_DECIMATION, exact=False,
+                          device=cuda)
     plan = ch.packed_plan
     rows = tiles * ch.taps.tile_rows + extra
     vals = torch.from_numpy(
@@ -332,7 +333,7 @@ def test_wrappers_raise_on_bad_input(cuda):
     """A CUDA tensor never falls back to the plain version: bad shapes,
     dtypes or devices raise before any launch."""
     ch = MultifmChain(pager.lpf_taps(), pager.OFFSETS_HZ[:2], pager.FS,
-                      pager.DECIMATION, device=cuda)
+                      pager.DECIMATION, exact=False, device=cuda)
     st = ch.init_state()
     prev = torch.stack([st.prev_r, st.prev_i])
     block = torch.zeros(ch.packed_plan.row * 3 + 2, dtype=torch.int16,
@@ -458,6 +459,39 @@ def test_mesh_pipeline_on_the_card(cuda, pager_capture):
                                   base.stream_stats["fetched"])
 
 
+def test_host_path_on_the_card_matches_push(cuda, pager_capture):
+    """process_capture(device_decode=False), the stage-by-stage path, on
+    the card decodes what push/flush decodes: at the pager deployment K1,
+    K3 and the exact DC kernel launch on it, at decimation 50 K4 does."""
+    iq, _ = pager_capture
+    pipe = _pager_pipe(cuda)
+    want = [[dataclasses.asdict(m) for m in ch]
+            for ch in pipe.process_capture(iq)]
+    before = (k1.chain_fm.launches, k3.row_resample.launches,
+              dc_blocker.dc_block_exact.launches)
+    got = [[dataclasses.asdict(m) for m in ch]
+           for ch in pipe.process_capture(iq, device_decode=False)]
+    after = (k1.chain_fm.launches, k3.row_resample.launches,
+             dc_blocker.dc_block_exact.launches)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert got == want and sum(map(len, got)) == 8
+
+    from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
+
+    specs = pager.dec50_channel_specs(ChannelSpec)
+    starts = [150_000 + k * 500_000 for k in range(len(specs))]
+    iq50, _ = pager.capture(4_200_000, starts, seed=10)
+    pipe = ReceivePipeline(pager.dec50_lpf_taps(), pager.CENTER_HZ, pager.FS,
+                           pager.DEC50_DECIMATION, specs, device=cuda)
+    want = [[dataclasses.asdict(m) for m in ch]
+            for ch in pipe.process_capture(iq50)]
+    before = k4.frame_resample.launches
+    got = [[dataclasses.asdict(m) for m in ch]
+           for ch in pipe.process_capture(iq50, device_decode=False)]
+    assert k4.frame_resample.launches > before
+    assert got == want and sum(map(len, got)) == len(specs)
+
+
 def test_cli_device_count_guard(cuda, tmp_path, capsys):
     """pipeline-torch refuses a mesh larger than the CUDA devices it sees,
     with pipeline-tpu's message."""
@@ -566,7 +600,7 @@ def test_wide_bank_kernels_match_plain(cuda, shape, case):
     or at 232 channels 15 of at most 32 read from L2."""
     from tsl_sdr_tpu_torch.ops import exact_fir as k5
 
-    ch = MultifmChain(*_wide_bank(shape), device=cuda)
+    ch = MultifmChain(*_wide_bank(shape), exact=False, device=cuda)
     taps, plan = ch.taps, ch.packed_plan
     assert taps.grouped
     assert taps.body == ("tile" if shape == "airspy_232ch" else "bank")

@@ -154,7 +154,7 @@ def test_grouped_sums_match_jax_and_chunked(shape):
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_chain_picks_the_form_as_jax(shape):
     args = SHAPES[shape]()
-    got = MultifmChain(*args, device="cpu")
+    got = MultifmChain(*args, exact=False, device="cpu")
     want = JaxChain(*args, exact=False, backend="xla")
     assert (got.grouped_plan is None) == (want.grouped_plan is None)
     assert got.taps.grouped == (want.grouped_plan is not None)
@@ -179,7 +179,7 @@ def test_wide_chain_matches_jax_both_tiers(shape):
     np.testing.assert_array_equal(got, want)
 
     ref = JaxChain(*args, exact=False, backend="xla")
-    fast = MultifmChain(*args, device="cpu")
+    fast = MultifmChain(*args, exact=False, device="cpu")
     js = ref.init_state(prefix=x[:c_len])
     ts = fast.init_state(prefix=x[:c_len])
     pos, outs_j, outs_t = c_len, [], []
@@ -485,7 +485,7 @@ def test_tap_support_covers_the_taps():
 def test_grouped_counter_only_counts_card_launches():
     """A CPU tensor runs the plain version: no counter moves."""
     args = SHAPES["bench_64ch"]()
-    ch = MultifmChain(*args, device="cpu")
+    ch = MultifmChain(*args, exact=False, device="cpu")
     assert ch.taps.grouped
     before = (k1.chain_fm.launches, k1.chain_fm.grouped_launches,
               k1.chain_fm.bank_launches)

@@ -11,7 +11,11 @@ Bars:
   without a mesh (and of the JAX package's), with equal ``fetched``
   counters, and the ranks' uploads add up to the single-process count;
 - ``pipeline-torch --distributed`` over 2 ranks writes ``pipeline-tpu``'s
-  messages from rank 0, and rank 1 writes nothing.
+  messages from rank 0, and rank 1 writes nothing;
+- the weak-scaling witness (``_mh_scaling_worker``) at 1, 2 and 4
+  processes: the halo bytes the ranks counted equal ``multihost.
+  dcn_halo_bytes(plan, P)`` (JAX's record fields beside them), the global
+  block grows with P and each rank's upload stays fixed.
 
 Every subprocess is waited for with a timeout (``launch_workers``'
 ``communicate(timeout=...)``); each test takes well under a minute here.
@@ -159,3 +163,37 @@ def test_pipeline_cli_distributed_two_processes(tmp_path):
     assert not outs[1].exists(), "rank 1 must not write"
     for rank, log in enumerate(logs):
         assert f"process {rank} of 2" in log and "halo_bytes=" in log, log
+
+
+# the fields of the JAX witness's record (tsl_sdr_tpu/parallel/
+# _mh_scaling_worker.py)
+JAX_RECORD = ("pid", "procs", "n_time", "samples_per_host",
+              "global_block_samples", "step_ms_median",
+              "dcn_halo_bytes_per_block", "upload_elems_per_host")
+
+
+@pytest.mark.parametrize("n_processes", [1, 2, 4])
+def test_weak_scaling_witness_counts_halo_bytes(n_processes):
+    recs = multihost.run_scaling_witness(n_processes, reps=3, timeout=60.0)
+    plan = multihost.selftest_chain(nr_channels=2).packed_plan
+    span = 512 * plan.row            # --rows-per-shard 512, one device
+    want = multihost.dcn_halo_bytes(plan, n_processes)
+    assert [r["pid"] for r in recs] == list(range(n_processes))
+    for r in recs:
+        assert r["procs"] == r["n_time"] == n_processes
+        assert r["dcn_halo_bytes_per_block"] == \
+            r["dcn_halo_bytes_formula"] == want
+        assert r["upload_elems_per_host"] == span
+        assert r["samples_per_host"] == span // 2
+        assert r["global_block_samples"] == span // 2 * n_processes
+        assert r["out_shape"] == [2, span // 2 * n_processes // 4]
+        assert r["step_ms_median"] > 0
+        assert r["chain_fm_launches"] == 0   # the plain version on the CPU
+    # the ends send one halo, the inner ranks two
+    sent = [r["halo_bytes_sent_per_block"] for r in recs]
+    assert sum(sent) == want
+    row = plan.row * 2
+    if n_processes > 1:
+        assert sent[0] == (1 + plan.cr_rows) * row
+        assert sent[-1] == plan.cr_rows * row
+    assert set(JAX_RECORD) <= set(recs[0])

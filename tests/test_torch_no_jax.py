@@ -10,8 +10,10 @@ tier, ``-b``) and ``resampler-torch``, a third ``pipeline-torch --follow``
 on a FIFO, a fourth ``multifm-torch --exact`` (both I/O runtimes) and
 ``pipeline-torch --exact`` on a POCSAG + AIS capture made with the port's
 own generators, a fifth the Costas coherent chain (both tiers lock on a
-BPSK channel) and Mueller-Muller clock recovery. No file of the port, and
-not ``chip_smoke.py``, imports either package.
+BPSK channel) and Mueller-Muller clock recovery, a sixth the weak-scaling
+witness, ``design-filter-torch``, the coefficient dumps and the nine
+top-level names. No file of the port, and not ``chip_smoke.py``, imports
+either package.
 """
 
 import os
@@ -243,6 +245,43 @@ print("NO-JAX COSTAS OK")
 """
 
 
+_SURFACE_SCRIPT = _BLOCK + r"""
+import contextlib, io, json, os, tempfile
+from pathlib import Path
+import tsl_sdr_tpu_torch
+from tsl_sdr_tpu_torch.cli import design_filter
+from tsl_sdr_tpu_torch.parallel import _mh_scaling_worker
+from tsl_sdr_tpu_torch.utils.filter_design import resampler_filter_json
+
+tmp = Path(tempfile.mkdtemp())
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert _mh_scaling_worker.main([
+        "--pid", "0", "--nproc", "1", "--n-local", "2", "--port", "1",
+        "--outdir", str(tmp), "--reps", "2", "--rows-per-shard", "64",
+        "--device", "cpu"]) == 0
+rec = json.loads((tmp / "mhs_out_0.json").read_text())
+assert rec["n_time"] == 2 and rec["dcn_halo_bytes_per_block"] == 0, rec
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert design_filter.main(["16", "25", "0.4"]) == 0
+assert out.getvalue() == resampler_filter_json(16, 25, 0.4) + "\n"
+os.environ["TSL_DUMP_LPF"] = str(tmp / "lpf.txt")
+os.environ["TSL_DUMP_FILTER_COEFFICIENTS"] = str(tmp / "ph.txt")
+chain = tsl_sdr_tpu_torch.MultifmChain([0.25] * 8, [1000], 64_000, 4,
+                                       device="cpu")
+tsl_sdr_tpu_torch.ResamplerChain([0.5] * 6, 3, 2, device="cpu")
+assert (tmp / "lpf.txt").read_text().startswith("lpf_shifted_1000 = [")
+assert (tmp / "ph.txt").read_text().count("Phase ") == 3
+for name in ("MultifmChain", "ResamplerChain", "ReceivePipeline",
+             "ChannelSpec", "PocsagDecoder", "FlexDecoder", "AisDecoder",
+             "CostasChannelizer", "MultifmConfig"):
+    assert getattr(tsl_sdr_tpu_torch, name).__name__ == name
+""" + _CHECK + r"""
+print("NO-JAX SURFACE OK")
+"""
+
+
 def _run_no_jax(script: str, token: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -271,6 +310,10 @@ def test_costas_chain_runs_without_jax():
     _run_no_jax(_COSTAS_SCRIPT, "NO-JAX COSTAS OK")
 
 
+def test_surface_runs_without_jax():
+    _run_no_jax(_SURFACE_SCRIPT, "NO-JAX SURFACE OK")
+
+
 def test_no_port_file_imports_jax():
     """No ``import``/``from`` of jax, jaxlib, ml_dtypes or ``tsl_sdr_tpu``
     (``tsl_sdr_tpu_torch`` is the port itself)."""
@@ -287,6 +330,9 @@ def test_no_port_file_imports_jax():
     assert {"tsl_sdr_tpu_torch/ops/costas.py",
             "tsl_sdr_tpu_torch/ops/mueller_muller.py",
             "tsl_sdr_tpu_torch/models/costas_channel.py",
-            "tsl_sdr_tpu_torch/runtime/native.py"} <= names
+            "tsl_sdr_tpu_torch/runtime/native.py",
+            "tsl_sdr_tpu_torch/utils/diag.py",
+            "tsl_sdr_tpu_torch/parallel/_mh_scaling_worker.py",
+            "tsl_sdr_tpu_torch/cli/design_filter.py"} <= names
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders

@@ -22,10 +22,14 @@ counterpart's path (``ops/packed_fir.py`` here ports
 * ``parallel``— meshes of devices, the sharded channelizer and resampler,
                 ``ReceivePipeline(mesh=)``'s engine, and multi-process
                 runs over ``torch.distributed`` (gloo).
-* ``cli``     — ``pipeline-torch`` (file-capture mode), ``resampler-torch``
-                and ``decoder-torch``.
+* ``cli``     — ``pipeline-torch`` (file, live, bit-exact, mesh and
+                multi-process modes), ``multifm-torch``,
+                ``resampler-torch``, ``decoder-torch`` and
+                ``design-filter-torch``.
 * ``kernels`` — builds ``csrc/*.cu`` with ``nvcc`` at first use.
-* ``utils``   — config, IQ, filter design and JSON output, and conversion
+* ``utils``   — config, IQ, filter design, JSON output, diagnostics (the
+                ``TSL_DUMP_LPF``/``TSL_DUMP_FILTER_COEFFICIENTS`` dumps,
+                ``utils.diag``), and conversion
                 of plans, chain state and stream state to and from the JAX
                 package's.
 * ``testing`` — the protocol generators and synthetic captures.
@@ -38,11 +42,28 @@ copy, under the same module name.
 __version__ = "0.1.0"
 
 
-def __getattr__(name):
-    """``CostasChannelizer`` at top level, as the JAX package exports it,
-    imported at first use (importing the package loads no model)."""
-    if name == "CostasChannelizer":
-        from tsl_sdr_tpu_torch.models.costas_channel import CostasChannelizer
+_LAZY = {
+    "MultifmChain": ("tsl_sdr_tpu_torch.models.channelizer", "MultifmChain"),
+    "ResamplerChain": ("tsl_sdr_tpu_torch.models.resampler",
+                       "ResamplerChain"),
+    "ReceivePipeline": ("tsl_sdr_tpu_torch.models.pipeline",
+                        "ReceivePipeline"),
+    "ChannelSpec": ("tsl_sdr_tpu_torch.models.pipeline", "ChannelSpec"),
+    "PocsagDecoder": ("tsl_sdr_tpu_torch.models.pocsag", "PocsagDecoder"),
+    "FlexDecoder": ("tsl_sdr_tpu_torch.models.flex", "FlexDecoder"),
+    "AisDecoder": ("tsl_sdr_tpu_torch.models.ais", "AisDecoder"),
+    "CostasChannelizer": ("tsl_sdr_tpu_torch.models.costas_channel",
+                          "CostasChannelizer"),
+    "MultifmConfig": ("tsl_sdr_tpu_torch.utils.config", "MultifmConfig"),
+}
 
-        return CostasChannelizer
+
+def __getattr__(name):
+    """The JAX package's nine top-level names, each imported at first use
+    (importing the package loads no model and no CUDA state)."""
+    if name in _LAZY:
+        import importlib
+
+        mod, attr = _LAZY[name]
+        return getattr(importlib.import_module(mod), attr)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,5 +1,5 @@
-"""Command-line tools of the port: ``pipeline-torch``, ``resampler-torch``
-and ``decoder-torch``."""
+"""Command-line tools of the port: ``pipeline-torch``, ``multifm-torch``,
+``resampler-torch``, ``decoder-torch`` and ``design-filter-torch``."""
 
 
 def cli_version() -> str:

@@ -45,6 +45,8 @@ import time
 
 import numpy as np
 
+from tsl_sdr_tpu_torch.cli import cli_version
+
 PROG = "pipeline-torch"
 
 
@@ -97,6 +99,8 @@ def build_argparser():
     p = argparse.ArgumentParser(prog=PROG, description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("configs", nargs="+", help="JSON config file(s), merged")
+    p.add_argument("-V", "--version", action="version",
+                   version=f"%(prog)s {cli_version()}")
     p.add_argument("--iq-file", default=None)
     p.add_argument("--iq-format", default=None,
                    choices=["cs16", "cs8", "cu8", "cu8_unbiased", "rtl_u8"])

@@ -16,9 +16,10 @@ discriminator; 16-bit PCM out (reference ``multifm/demod.c:49-121``).
   as integer torch ops on the card. Its PCM is the reference C's, byte for
   byte.
 
-Unlike the JAX package this port defaults to ``exact=False``, and runs the
-exact tier's derotation and discriminator on the device in the dispatch
-half of a step, so the FM carry advances there (in dispatch order).
+As in the JAX package the chain defaults to ``exact=True``. Unlike it, the
+port runs the exact tier's derotation and discriminator on the device in
+the dispatch half of a step, so the FM carry advances there (in dispatch
+order).
 """
 
 from __future__ import annotations
@@ -146,16 +147,34 @@ class MultifmChain:
     sample_rate : wideband input sample rate (Hz)
     decimation : input->channel decimation factor
     gains : optional per-channel linear gains
-    exact : bit-exact integer tier (True) or production tier (False). The
-        production tier has one form, K1: its int32 sums are the JAX XLA
-        tier's and its discriminator is the Pallas kernel's, so the JAX
-        package's ``backend=`` has no counterpart here.
+    exact : bit-exact integer tier (True, the default, as in the JAX
+        package) or production tier (False)
+    backend : the JAX package's choice of production form ("auto", "xla",
+        "pallas", "pallas-high"), accepted and ignored: the production tier
+        has one form here, K1, whose int32 sums are the JAX XLA tier's and
+        whose discriminator is the Pallas kernel's. Any other value raises
+        ``ValueError``, as in the JAX package.
+    exact_tier : the bit-exact tier's form: "packed" (the default and the
+        only one ported). The JAX package's "scan", its readable
+        ``lax.scan`` oracle, raises ``ValueError`` naming it.
     device : torch device the state and the taps live on
     """
 
     def __init__(self, lpf_taps, offsets_hz, sample_rate: float,
-                 decimation: int, gains=None, *, exact: bool = False,
+                 decimation: int, gains=None, *, exact: bool = True,
+                 backend: str = "auto", exact_tier: str = "packed",
                  device="cuda"):
+        if exact_tier == "scan":
+            raise ValueError(
+                "exact_tier='scan' is the JAX package's lax.scan oracle "
+                "(tsl_sdr_tpu.models.channelizer.MultifmChain with "
+                "exact_tier='scan') and is not ported; use "
+                "exact_tier='packed'")
+        if exact_tier != "packed":
+            raise ValueError(f"unknown exact_tier {exact_tier!r}")
+        if backend not in ("auto", "xla", "pallas", "pallas-high"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self.exact_tier = exact_tier
         self.exact = bool(exact)
         self.device = torch.device(device)
         self.packed_plan = packed_fir.make_packed_fir_plan(
@@ -173,11 +192,14 @@ class MultifmChain:
             self.packed_plan.omega_d)).to(self.device)
 
     @classmethod
-    def from_config(cls, config, *, exact: bool = True, device="cuda"):
-        """From a :class:`tsl_sdr_tpu_torch.utils.config.MultifmConfig`."""
+    def from_config(cls, config, *, exact: bool = True, backend: str = "xla",
+                    device="cuda"):
+        """From a :class:`tsl_sdr_tpu_torch.utils.config.MultifmConfig`
+        (``backend`` as in the constructor)."""
         return cls(config.lpf_taps, config.channel_offsets_hz,
                    config.sample_rate_hz, config.decimation_factor,
-                   gains=config.channel_gains, exact=exact, device=device)
+                   gains=config.channel_gains, exact=exact, backend=backend,
+                   device=device)
 
     @property
     def nr_channels(self) -> int:

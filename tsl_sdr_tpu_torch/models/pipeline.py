@@ -77,8 +77,6 @@ from tsl_sdr_tpu_torch.utils.filter_design import (
 from tsl_sdr_tpu_torch.utils.iq import WIRE_DTYPES, WIRE_ZERO, widen_iq_bytes
 
 PROTOCOL_RATES = {"pocsag": 38_400, "flex": 16_000, "ais": 48_000}
-# largest resampler interpolation/decimation term a channel may need
-MAX_RATIO = 256
 
 _TORCH_WIRE = {np.dtype(np.int16): torch.int16,
                np.dtype(np.int8): torch.int8,
@@ -363,6 +361,9 @@ class ReceivePipeline:
     decimation : channelizer decimation; channel rate = fs / decimation
     channels : list of :class:`ChannelSpec`
     exact : bit-exact integer tier (True) or production tier (False)
+    backend : the JAX package's production form ("auto", "xla", "pallas",
+        "pallas-high"), accepted and ignored as :class:`MultifmChain` does
+    max_ratio : largest allowed resampler interpolation/decimation term
     block_size : streaming block length in wideband samples (rounded to the
         pipeline quantum); default ~4M
     inflight_depth : blocks kept in flight before the oldest is drained
@@ -394,6 +395,7 @@ class ReceivePipeline:
 
     def __init__(self, lpf_taps, center_freq_hz: int, sample_rate: float,
                  decimation: int, channels, *, exact: bool = False,
+                 backend: str = "auto", max_ratio: int = 256,
                  block_size: int | None = None,
                  inflight_depth: int = 2, ais_packet_hook=None,
                  wire_fmt: str = "cs16", device="cuda",
@@ -431,7 +433,7 @@ class ReceivePipeline:
             for c in self.channels
         ]
         self.chain = MultifmChain(lpf_taps, offsets, sample_rate, decimation,
-                                  gains=gains, exact=exact,
+                                  gains=gains, exact=exact, backend=backend,
                                   device=self.device)
         ch_rate = self.chain.channel_rate
 
@@ -446,7 +448,7 @@ class ReceivePipeline:
                 continue
             target = PROTOCOL_RATES[spec.protocol]
             ratio = Fraction(target, int(round(ch_rate)))
-            if max(ratio.numerator, ratio.denominator) > MAX_RATIO:
+            if ratio.numerator > max_ratio or ratio.denominator > max_ratio:
                 raise ValueError(
                     f"channel rate {ch_rate:.0f} Hz -> {target} Hz needs "
                     f"{ratio.numerator}/{ratio.denominator}; pick a "
@@ -459,8 +461,9 @@ class ReceivePipeline:
                     self._rs_coeffs[gid] = design_rational_resampler_filter(
                         ratio.numerator, ratio.denominator, 0.4)
                     if exact:
-                        # the exact engine's and the host path's resampler
-                        # (the production engine sizes its own plans)
+                        # the exact engine's resampler (the production
+                        # engine sizes its own plans; its host path makes
+                        # its chains at first use, _host_resampler)
                         self._rs_chains[gid] = ResamplerChain(
                             self._rs_coeffs[gid], ratio.numerator,
                             ratio.denominator, exact=True,
@@ -1432,41 +1435,71 @@ class ReceivePipeline:
 
     # -- whole-capture API ---------------------------------------------------
 
-    def process_capture(self, iq):
+    def process_capture(self, iq, *, device_decode: bool = True):
         """Run a whole capture. Returns a list (one entry per channel) of
         decoded message lists, or the raw int16 PCM for ``pcm`` channels.
-        The production tier streams it through :meth:`push`/:meth:`flush`;
-        the bit-exact tier takes the stage-by-stage host path (as in the
-        JAX package), :meth:`_process_capture_host`."""
-        if self.chain.exact:
-            return self._process_capture_host(iq)
-        self.stream_reset()
-        results = self.push(iq)
-        for i, part in enumerate(self.flush()):
-            results[i].extend(part)
-        for i, spec in enumerate(self.channels):
-            if spec.protocol == "pcm":
-                results[i] = (np.concatenate(results[i]) if results[i]
-                              else np.zeros(0, np.int16))
-        return results
 
-    def _process_capture_host(self, iq):
-        """Stage by stage over the whole capture, host arrays between the
-        stages: the channelizer's ``process_array``, polarity, each
-        channel's ``ResamplerChain.process_array``, the exact DC blocker,
-        the decoders."""
+        The production tier with ``device_decode`` (the default) streams it
+        through :meth:`push`/:meth:`flush`. ``device_decode=False``, and
+        the bit-exact tier always, take the stage-by-stage path
+        (:meth:`_process_capture_host`), the oracle for the streaming
+        engine, as in the JAX package."""
+        if device_decode and not self.chain.exact:
+            self.stream_reset()
+            results = self.push(iq)
+            for i, part in enumerate(self.flush()):
+                results[i].extend(part)
+            for i, spec in enumerate(self.channels):
+                if spec.protocol == "pcm":
+                    results[i] = (np.concatenate(results[i]) if results[i]
+                                  else np.zeros(0, np.int16))
+            return results
+        return self._process_capture_host(iq, device_decode=device_decode)
+
+    def _host_resampler(self, gid) -> ResamplerChain:
+        """Ratio group ``gid``'s :class:`ResamplerChain` on the pipeline's
+        tier (the exact engine's own, or made at first use)."""
+        if gid not in self._rs_chains:
+            self._rs_chains[gid] = ResamplerChain(
+                self._rs_coeffs[gid], gid[0], gid[1],
+                exact=self.chain.exact, device=self.device)
+        return self._rs_chains[gid]
+
+    def _process_capture_host(self, iq, *, device_decode: bool = False):
+        """Stage by stage over the whole capture: the channelizer's
+        ``process_array``, polarity, each channel's
+        ``ResamplerChain.process_array``, the exact DC blocker (its kernel
+        on the card), the decoders. ``device_decode`` keeps the arrays on
+        the device between the stages (``process_array_device``); without
+        it they are host arrays between them."""
         if self.wire_fmt != "cs16":
             iq = self._widen_host(self._coerce_wire(iq))
-        pcm = self.chain.process_array(np.asarray(iq, np.int16))
+        iq = np.asarray(iq, np.int16)
+        if device_decode:
+            pcm = self.chain.process_array_device(iq)
+        else:
+            pcm = torch.from_numpy(self.chain.process_array(iq))
         results = []
-        for i, audio in enumerate(self._exact_polarity(pcm)):
+        for i, spec in enumerate(self.channels):
+            audio = pcm[i]
+            if spec.invert:
+                audio = torch.clamp(-audio.to(torch.int32), -32768,
+                                    32767).to(torch.int16)
             gid = self._ratio_gid[i]
             if gid is not None:
-                audio = self._rs_chains[gid].process_array(audio)
-            if self.channels[i].dc_block:
-                audio = self._exact_dc(torch.zeros(
-                    (1, 3), dtype=torch.int32, device=self.device), i, audio)
+                rs = self._host_resampler(gid)
+                audio = (rs.process_array_device(audio) if device_decode
+                         else torch.from_numpy(rs.process_array(audio)))
+            if spec.dc_block:
+                # the production tier's float samples enter truncated
+                # toward zero (the JAX host path's astype)
+                audio = dcb.dc_block_exact(
+                    torch.zeros((1, 3), dtype=torch.int32,
+                                device=self.device),
+                    to_int16(audio).to(self.device).contiguous()[None],
+                    dcb.make_pole_coeff(spec.dc_block_pole))[0]
+            audio = audio.cpu().numpy()
             dec = self._decoders[i]
-            results.append(np.asarray(audio, np.int16) if dec is None
-                           else dec.scan(np.asarray(audio)))
+            results.append(audio.astype(np.int16) if dec is None
+                           else dec.scan(audio))
         return results

@@ -37,10 +37,15 @@ class ResamplerChainState(NamedTuple):
 class ResamplerChain:
     def __init__(self, lpf_coeffs, interpolate: int, decimate: int, *,
                  dc_block_pole: float | None = None, block_out: int = 1024,
-                 exact: bool = True, device="cuda"):
+                 exact: bool = True, backend: str = "auto", device="cuda"):
         """``lpf_coeffs``: float taps (quantized to Q.14 like
-        ``resampler/resampler.c:145-151``). ``device``: "cuda" (default)
+        ``resampler/resampler.c:145-151``). ``backend``: the JAX package's
+        "auto", "xla" or "pallas", accepted and ignored (K3 or K4 on the
+        card, their plain versions on the CPU); any other value raises
+        ``ValueError``, as in the JAX package. ``device``: "cuda" (default)
         or "cpu"; CUDA must be present when asked for."""
+        if backend not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unknown backend {backend!r}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but CUDA is not available")

@@ -28,6 +28,7 @@ import torch
 
 from tsl_sdr_tpu_torch.ops import q14
 from tsl_sdr_tpu_torch.ops.fir import design_channel_taps
+from tsl_sdr_tpu_torch.utils.diag import dump_shifted_lpf
 
 
 class PackedFirPlan(NamedTuple):
@@ -104,6 +105,7 @@ def make_packed_fir_plan(lpf_taps, offsets_hz, sample_rate: float,
         ci = taps.imag.astype(np.float32)
         qr = q14.quantize_q14(taps.real)
         qi = q14.quantize_q14(taps.imag)
+        dump_shifted_lpf(int(offsets_hz[c]), taps, qr, qi)
         for j in range(opr):
             vre = 2 * d * j + tidx
             # out_re += cr*xr - ci*xi ; out_im += ci*xr + cr*xi

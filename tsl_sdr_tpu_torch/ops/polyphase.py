@@ -38,6 +38,7 @@ from tsl_sdr_tpu_torch.ops.frame_resampler import FrameTaps, frame_resample
 from tsl_sdr_tpu_torch.ops.frame_resampler import frame_taps
 from tsl_sdr_tpu_torch.ops.packed_fir import next_carry
 from tsl_sdr_tpu_torch.ops.row_resampler import RowTaps, row_resample
+from tsl_sdr_tpu_torch.utils.diag import dump_phase_filters
 
 
 class ResamplerPlan(NamedTuple):
@@ -86,6 +87,7 @@ def make_resampler_plan(fir_coeff_q14, interpolate: int, decimate: int,
     ``align_k_row=False`` keeps the exact ``block_out_target`` grid (the
     pipeline needs ``block_in`` equal to its per-block channel span)."""
     phases = build_phase_filters(fir_coeff_q14, interpolate)
+    dump_phase_filters(phases)
     p = phases.shape[1]
 
     g = math.gcd(interpolate, decimate)

@@ -25,8 +25,9 @@ Two rules every caller keeps, or the ranks deadlock or disagree:
 
 The executed form: :func:`launch_workers` starts real processes on one
 box (``_mh_worker`` for the sharded channelizer, ``_mh_pipeline_worker``
-for the receive pipeline), the CPU standing in for devices in the tests and
-``cuda:0`` shared by the ranks on one card.
+for the receive pipeline, ``_mh_scaling_worker`` for the weak-scaling
+witness, :func:`run_scaling_witness`), the CPU standing in for devices in
+the tests and ``cuda:0`` shared by the ranks on one card.
 """
 
 from __future__ import annotations
@@ -322,3 +323,23 @@ def run_multiprocess_selftest(n_processes: int, n_local: int,
         except (RuntimeError, subprocess.TimeoutExpired) as e:
             last_err = e
     raise last_err
+
+
+def run_scaling_witness(n_processes: int, n_local: int = 1,
+                        device: str = "cpu", reps: int = 3,
+                        rows_per_shard: int = 512,
+                        timeout: float = 600.0) -> list:
+    """Run the weak-scaling witness (:mod:`._mh_scaling_worker`) across
+    ``n_processes`` real processes of ``n_local`` devices each; returns
+    every rank's record, in rank order."""
+    import json
+    from pathlib import Path
+
+    td, _logs = launch_workers(
+        "tsl_sdr_tpu_torch.parallel._mh_scaling_worker", n_processes,
+        n_local, timeout=timeout,
+        extra_args=("--reps", str(reps), "--rows-per-shard",
+                    str(rows_per_shard), "--device", device))
+    with td:
+        return [json.loads((Path(td.name) / f"mhs_out_{pid}.json")
+                           .read_text()) for pid in range(n_processes)]

@@ -6,11 +6,13 @@ librtlsdr, libairspy and the UHD shim: they record every setting applied
 and deliver known streams (the RTL-SDR test-mode counter or the bytes of
 ``MOCK_RTLSDR_DATA``, CS16 ramps). :func:`build` compiles one with ``gcc``
 into ``build/tsl_sdr_tpu_torch/`` (never into the package directory); it
-raises RuntimeError where there is no C compiler.
+raises RuntimeError where there is no C compiler. :func:`env_for` and
+:func:`install` point the hardware sources at one.
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 from tsl_sdr_tpu_torch.runtime import native
@@ -30,3 +32,13 @@ def build(kind: str) -> Path:
     return native.build_shared(_HERE / f"mock_{kind}.c", f"mock_{kind}",
                                "gcc", ["-O2", "-shared", "-fPIC", "-pthread"])
 
+
+
+def env_for(kind: str) -> dict:
+    """Environment pointing the hardware source at the mock library."""
+    return {ENV_VARS[kind]: str(build(kind))}
+
+
+def install(kind: str):
+    """Point this process's hardware source at the mock library."""
+    os.environ[ENV_VARS[kind]] = str(build(kind))
