@@ -13,8 +13,8 @@ decoder front end (``decoder-torch``, ``resampler-torch``) at the
 reference's resampler settings, the pipeline at decimation 50, the
 bit-exact tier, ``multifm-torch`` at ``etc/multifm_rtlsdr_8ch.json``,
 wide channel banks (BENCH_SUITE's 64 and 256 channels, the Airspy band's
-232), and the Costas coherent chain (BENCH_SUITE's costas_chain_device
-row):
+232), the Costas coherent chain (BENCH_SUITE's costas_chain_device
+row), and the block's last stages (K7, K8, K9):
 
 1. the card's name and power limit; the kernels' build (nvcc) and the
    decoders' native state machines (g++);
@@ -171,7 +171,26 @@ row):
    cuda:0, a pager block's samples a process: the halo bytes the ranks
    counted equal ``dcn_halo_bytes``, each rank uploads 1/P of the global
    block (walls: overhead of ranks sharing one card, never scaling); (e)
-   the nine top-level names resolve.
+   the nine top-level names resolve;
+21. the block's last stages: (a) K7 (the egress gate, ``csrc/gate.cu``)
+   against its plain version, byte for byte in the output buffer and the
+   new tail, at the pager's POCSAG group (columns of K1's [K, C] output)
+   and FLEX group (a resampler's float row beside the DC blocker's int16
+   row), at phase 15's AIS shape, at K % 8 != 0, K < TAIL and 130 rows
+   (two launches), with sync words planted at the block start, across the
+   tail boundary and in a POCSAG run ending at the last old sample, and
+   float rows holding values in (-1, 1), each twice; (b) K8 (the fast DC
+   blocker, ``csrc/dc_fast.cu``) against its plain version over 1,500,000
+   samples in blocks of 54,400, states carried, at poles 0.9999 and 0.5 on
+   1, 6 and 65 rows: within 1 LSB, the count of differing samples printed;
+   (c) K9 (the exact tier's derotation and LUT discriminator,
+   ``csrc/exact_fm.cu``) against its plain version, bit for bit, on K5's
+   sums at the exact pager block and at ``multifm_rtlsdr_8ch``'s block and
+   on adversarial sums (full scale, zero vectors, products on the LUT's
+   abscissae); each kernel's times and bound; (d) the device launches
+   (kernels and copies, torch.profiler) of a pager block's engine step and
+   of an exact pager block's dispatch, with the new kernels and with their
+   plain versions, and the step's time both ways in turns.
 
 Each path of phases 4, 8, 9, 10, 14, 15, 16, 17, 18, 19 and 20 and each
 run of phase 12 runs with the
@@ -183,7 +202,8 @@ none of them. A
 kernel's bound is the larger of its bytes over HBM's rate and its int16
 multiply-adds (four int8 tensor-core products each) over the int8 peak,
 from the H100's published peaks; the DC kernel's and K6's are their
-chains' latency.
+chains' latency; K7's, K8's and K9's count their integer or float64
+operations at the CUDA cores' rates.
 Any failed check raises and the exit code is non-zero. The last two lines
 are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
 """
@@ -301,6 +321,7 @@ def launch_counts() -> dict:
     from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
     from tsl_sdr_tpu_torch.ops import exact_fir as k5
     from tsl_sdr_tpu_torch.ops import frame_resampler as k4
+    from tsl_sdr_tpu_torch.ops import fm, gate
     from tsl_sdr_tpu_torch.ops import row_resampler as k3
 
     return {"chain_fm": k1.chain_fm.launches,
@@ -312,7 +333,10 @@ def launch_counts() -> dict:
             "row_resample_q14": k3.row_resample.launches_q14,
             "frame_resample": k4.frame_resample.launches,
             "dc_block_exact": dcb.dc_block_exact.launches,
-            "costas_chunks": k6.costas_block_planes.launches}
+            "costas_chunks": k6.costas_block_planes.launches,
+            "egress_gate": gate.egress_gate.launches,
+            "dc_block_fast": dcb.dc_block_fast.launches,
+            "exact_fm": fm.exact_fm.launches}
 
 
 def zero_launch_counts() -> None:
@@ -321,6 +345,7 @@ def zero_launch_counts() -> None:
     from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
     from tsl_sdr_tpu_torch.ops import exact_fir as k5
     from tsl_sdr_tpu_torch.ops import frame_resampler as k4
+    from tsl_sdr_tpu_torch.ops import fm, gate
     from tsl_sdr_tpu_torch.ops import row_resampler as k3
 
     k1.chain_fm.launches = 0
@@ -333,6 +358,9 @@ def zero_launch_counts() -> None:
     k4.frame_resample.launches = 0
     dcb.dc_block_exact.launches = 0
     k6.costas_block_planes.launches = 0
+    gate.egress_gate.launches = 0
+    dcb.dc_block_fast.launches = 0
+    fm.exact_fm.launches = 0
 
 
 def on_path(name: str, kernels, fn, totals: dict):
@@ -882,7 +910,7 @@ def live_runs(pager, iq, expected, device, tmp: Path, totals: dict,
     cap_path = tmp / "live.cs16"
     iq.tofile(cap_path)
     raw = iq.tobytes()
-    kernels = ("chain_fm", "row_resample")
+    kernels = ("chain_fm", "row_resample", "egress_gate", "dc_block_fast")
     res = {"fifo": []}
 
     def keys(run):
@@ -1484,7 +1512,7 @@ def front_end(device, totals: dict) -> dict:
             "resampler-torch", ("frame_resample",),
             lambda: resampler_runs(tmp, device), totals)
     runs["dec50_s"] = on_path("the decimation-50 pipeline",
-                              ("chain_fm", "frame_resample"),
+                              ("chain_fm", "frame_resample", "egress_gate"),
                               lambda: dec50_run(device), totals)
 
     # times at the paths' shapes (after warm-up), each beside one float64
@@ -1562,28 +1590,34 @@ def front_end(device, totals: dict) -> dict:
 # -- phases 13-16: the bit-exact tier, AIS and multifm-torch --------------
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Every kernel wrapper swapped for its plain torch version wherever a
-    module of the port calls it (the same run with no hand kernel: the
-    reference a card run is held to, there being no JAX on the card)."""
+def plain_kernels(names=None):
+    """Every kernel wrapper (or those ``names`` give) swapped for its plain
+    torch version wherever a module of the port calls it (the same run
+    with no hand kernel: the reference a card run is held to, there being
+    no JAX on the card)."""
     from tsl_sdr_tpu_torch.models import channelizer, costas_channel, resampler
     from tsl_sdr_tpu_torch.ops import chain as k1
     from tsl_sdr_tpu_torch.ops import costas as k6
     from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
     from tsl_sdr_tpu_torch.ops import exact_fir as k5
+    from tsl_sdr_tpu_torch.ops import fm, gate, polyphase
     from tsl_sdr_tpu_torch.ops import frame_resampler as k4
-    from tsl_sdr_tpu_torch.ops import polyphase
     from tsl_sdr_tpu_torch.ops import row_resampler as k3
 
     plain = {"chain_fm": k1.chain_fm_plain, "exact_fir": k5.exact_fir_plain,
              "row_resample": k3.row_resample_plain,
              "frame_resample": k4.frame_resample_plain,
              "dc_block_exact": dcb.dc_block_exact_plain,
-             "costas_block_planes": k6.costas_block_planes_plain}
+             "costas_block_planes": k6.costas_block_planes_plain,
+             "egress_gate": gate.egress_gate_plain,
+             "dc_block_fast": dcb.dc_block_fast_plain,
+             "exact_fm": fm.exact_fm_plain}
+    if names is not None:
+        plain = {k: v for k, v in plain.items() if k in names}
     before = launch_counts()
     saved = []
     for mod in (channelizer, resampler, polyphase, k4, dcb, costas_channel,
-                k6):
+                k6, gate, fm):
         for name, fn in plain.items():
             if hasattr(mod, name):
                 saved.append((mod, name, getattr(mod, name)))
@@ -1593,9 +1627,12 @@ def plain_kernels():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    require(launch_counts() == before,
-            f"a kernel launched with every kernel swapped for its plain "
-            f"version: {before} -> {launch_counts()}")
+    after = launch_counts()
+    moved = {k: (before[k], after[k]) for k in before
+             if before[k] != after[k]
+             and (names is None or k in names)}
+    require(not moved, f"a kernel launched with its wrapper swapped for its "
+                       f"plain version: {moved}")
 
 
 def k5_library(taps, carry, block):
@@ -1891,9 +1928,10 @@ def ais_runs(device, tmp: Path, totals: dict) -> dict:
     cfg_path.write_text(json.dumps(cfg))
     res = {}
     for tier, flags, kernels in (
-            ("production", [], ("chain_fm", "row_resample")),
-            ("exact", ["--exact"], ("exact_fir", "row_resample_q14",
-                                    "dc_block_exact"))):
+            ("production", [], ("chain_fm", "row_resample", "egress_gate",
+                                "dc_block_fast")),
+            ("exact", ["--exact"], ("exact_fir", "exact_fm",
+                                    "row_resample_q14", "dc_block_exact"))):
         out = tmp / f"ais_{tier}.jsonl"
 
         def run():
@@ -2029,7 +2067,8 @@ def multifm_runs(device, tmp: Path, totals: dict) -> dict:
 
     res = {}
     pcms = {}
-    for tier, flags, kernels in (("exact", ["--exact"], ("exact_fir",)),
+    for tier, flags, kernels in (("exact", ["--exact"],
+                                  ("exact_fir", "exact_fm")),
                                  ("production", [], ("chain_fm",))):
         for runtime in ("native", "python"):
             tag = f"{tier}_{runtime}"
@@ -2117,7 +2156,7 @@ def exact_phases(pipe, iq, expected, device, totals: dict) -> dict:
         tmp = Path(tmp)
         res["exact_pager"] = on_path(
             "the exact pager pipeline",
-            ("exact_fir", "row_resample_q14", "dc_block_exact"),
+            ("exact_fir", "exact_fm", "row_resample_q14", "dc_block_exact"),
             lambda: exact_pipeline_run(
                 pager.channel_specs(ChannelSpec), pager.lpf_taps(),
                 pager.DECIMATION, iq, [*expected, []], device, tmp, "pager",
@@ -2128,7 +2167,7 @@ def exact_phases(pipe, iq, expected, device, totals: dict) -> dict:
                                         seed=8)
         res["exact_dec50"] = on_path(
             "the exact pipeline at decimation 50",
-            ("exact_fir", "frame_resample"),
+            ("exact_fir", "exact_fm", "frame_resample"),
             lambda: exact_pipeline_run(
                 d50_specs, pager.dec50_lpf_taps(), pager.DEC50_DECIMATION,
                 d50_iq, [*d50_exp[:len(d50_specs)], []], device, tmp,
@@ -2437,13 +2476,13 @@ def wide_phase(device, totals: dict) -> dict:
             device, Path(tmp), totals, "airspy232", airspy,
             -1_450_000 + 12_500 * np.arange(AIRSPY_CHANNELS), AIRSPY_BURSTS,
             AIRSPY_SAMPLES,
-            {"exact": ("exact_fir", "exact_fir_grouped"),
+            {"exact": ("exact_fir", "exact_fir_grouped", "exact_fm"),
              "production": ("chain_fm", "chain_fm_grouped")})
         res["multifm_bank"] = wide_multifm_runs(
             device, Path(tmp), totals, "bank64", bank,
             -400_000 + 12_500 * np.arange(BANK_CHANNELS), BANK_BURSTS,
             BANK_SAMPLES,
-            {"exact": ("exact_fir", "exact_fir_grouped"),
+            {"exact": ("exact_fir", "exact_fir_grouped", "exact_fm"),
              "production": ("chain_fm", "chain_fm_grouped",
                             "chain_fm_bank")})
     return res
@@ -3028,14 +3067,16 @@ def mesh_pipelines(pager, iq, expected, totals: dict) -> dict:
     res = {}
     seen = set()
     base, base_st, _, _ = on_path("the pager pipeline without a mesh",
-                                  ("chain_fm", "row_resample"),
+                                  ("chain_fm", "row_resample", "egress_gate",
+                                   "dc_block_fast"),
                                   lambda: run(specs, None), totals)
     require(sorted(message_keys(base, specs)) == want,
             "the pager pipeline without a mesh lost a burst")
     for shape in MESH_SHAPES:
         out, st, counts, pipe = on_path(
             f"the pager pipeline on a {shape} mesh",
-            ("chain_fm", "row_resample"), lambda: run(specs, shape), totals)
+            ("chain_fm", "row_resample", "egress_gate", "dc_block_fast"),
+            lambda: run(specs, shape), totals)
         n_rs = check_span_resamplers(pipe, seen)
         got = sorted(message_keys(out, specs))
         require(got == want, f"mesh {shape} decoded {got}, expected {want}")
@@ -3061,7 +3102,8 @@ def mesh_pipelines(pager, iq, expected, totals: dict) -> dict:
     for shape in ((2, 2), (4, 1)):
         # pcm channels take no resampler: K1 alone on this path
         out, _, _, _ = on_path(f"the pager pipeline with pcm channels on a "
-                            f"{shape} mesh", ("chain_fm",),
+                            f"{shape} mesh",
+                            ("chain_fm", "egress_gate", "dc_block_fast"),
                             lambda: run(pcm_specs, shape), totals)
         for i, spec in enumerate(pcm_specs):
             if spec.protocol != "pcm":
@@ -3094,7 +3136,7 @@ def mesh_pipelines(pager, iq, expected, totals: dict) -> dict:
 
     st0, _ = dec50(None)
     st, pipe = on_path("the decimation-50 pipeline on a (2, 1) mesh",
-                       ("chain_fm", "frame_resample"),
+                       ("chain_fm", "frame_resample", "egress_gate"),
                        lambda: dec50((2, 1)), totals)
     n_rs = check_span_resamplers(pipe, seen)
     require(n_rs > 0, "decimation 50 on (2, 1): no K4 span program")
@@ -3361,7 +3403,8 @@ def multifm_dumps(device, tmp: Path, totals: dict) -> dict:
                 for k in range(nch)]
 
     res = {}
-    for tier, flags, kernels in (("exact", ["--exact"], ("exact_fir",)),
+    for tier, flags, kernels in (("exact", ["--exact"],
+                                  ("exact_fir", "exact_fm")),
                                  ("production", [], ("chain_fm",))):
         plain = run(f"{tier}_nodump", flags)
         paths = dump_paths(tmp, f"mf_{tier}")
@@ -3507,8 +3550,318 @@ def surface_phase(pager, iq, expected, device, totals: dict) -> dict:
     return res
 
 
+# -- phase 21: the egress gate (K7), the fast DC blocker (K8), K9 -----------
+
+def gate_rows(case, device, seed: int):
+    """A gate case's rows on the card, in its layout (a row each, or the
+    columns of a [K, C] tensor as K1 gives them), and its carried tail."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.testing import stage_inputs as si
+
+    _, mode, g, k, types, layout, plants = case
+    cols, tail = si.gate_inputs(mode, g, k, types, plants, seed)
+    if layout == "columns":
+        mat = torch.from_numpy(np.stack(cols, axis=1)).to(device)  # [K, G]
+        rows = [mat[:, r] for r in range(g)]
+    else:
+        rows = [torch.from_numpy(c).to(device) for c in cols]
+    return rows, torch.from_numpy(tail).to(device)
+
+
+def gate_ops(mode: str, g: int, k: int) -> int:
+    """The integer operations the gate needs: each tested position's
+    register of each spec updated in place (shift, or, mask), compared
+    (xor, popcount, compare) and paired (and, or), and a pack step a
+    bit."""
+    ext = {"pocsag": [19, 9, 5], "ais": [4], "flex": [0]}[mode]
+    return g * (sum(8 * (k + e) for e in ext) + 2 * k)
+
+
+def check_gate(device) -> dict:
+    """(a) K7 against its plain version at every case of
+    ``stage_inputs.GATE_CASES``, byte for byte in the output buffer and
+    the new tail, each twice (the second launch finds the flag scratch
+    reset); planted rows flag, rows with nothing planted do not. Then K7's
+    times at the pager's POCSAG and FLEX groups and at phase 15's AIS
+    shape."""
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import gate
+    from tsl_sdr_tpu_torch.testing import stage_inputs as si
+
+    res = {"times": {}}
+    for n, case in enumerate(si.GATE_CASES):
+        name, mode, g, k, _, _, plants = case
+        rows, tail = gate_rows(case, device, n)
+        out_p, tail_p = gate.egress_gate_plain(mode, rows, tail)
+        for launch in (1, 2):
+            out_k, tail_k = gate.egress_gate(mode, rows, tail)
+            torch.cuda.synchronize()
+            bad = (out_k != out_p).nonzero()[:4].tolist()
+            require(torch.equal(out_k, out_p) and torch.equal(tail_k, tail_p),
+                    f"K7 {name} (launch {launch}): output differs at "
+                    f"{bad}, tails equal {torch.equal(tail_k, tail_p)}")
+        flagged = set(out_p[:, 0].nonzero().flatten().tolist())
+        planted = {r for r, _ in plants}
+        tested = si.tested_rows(mode, k, plants)
+        require(tested <= flagged <= planted,
+                f"K7 {name}: flags {sorted(flagged)}, planted "
+                f"{sorted(planted)}, tested {sorted(tested)}")
+        log(f"(a) K7 {name} [{g}, {k}] ({mode}): output {tuple(out_k.shape)}"
+            f" {out_k.dtype} and new tail byte-equal to the plain version "
+            f"(two launches); flags {sorted(flagged)} of planted "
+            f"{sorted(planted)}")
+        if n in (0, 4, 7):
+            t = kernel_times(lambda: gate.egress_gate_plain(mode, rows, tail),
+                             lambda: gate.egress_gate(mode, rows, tail),
+                             3, 50)
+            t["bound_ms"], t["bound_by"] = bound(
+                0, nbytes(*rows, tail, out_k, tail_k),
+                gate_ops(mode, g, k))
+            log(f"K7 {name}: kernel {t['ms']:.4f} ms (call "
+                f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.5f} ms ({t['bound_by']}), "
+                f"{t['bound_ms'] / t['ms']:.1%} of it")
+            res["times"][name] = t
+    res["shapes"] = n + 1
+    return res
+
+
+# the H100 SXM's float64 rate outside the tensor cores (data sheet): 34 T/s
+F64_CORE_OPS = 34e12
+
+
+def check_dc_fast(device) -> dict:
+    """(b) K8 against its plain version over 1,500,000 samples in blocks of
+    the pager's 54,400 (the last one ragged), states carried, at poles
+    0.9999 and 0.5, on 1, 6 and 65 rows (two launches): within 1 LSB,
+    with the count of samples that differ; then K8's times at the pager
+    block's one DC-blocked channel."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
+    from tsl_sdr_tpu_torch.testing.stage_inputs import dc_rows
+
+    n, block = 1_500_000, 54_400
+    worst, differ, total = 0, 0, 0
+    for pole in (0.9999, 0.5):
+        p = dcb.make_pole_coeff(pole)
+        for g in (1, 6, 65):
+            x = torch.from_numpy(
+                dc_rows(np.random.default_rng(g), g, n)).to(device)
+            sk = [dcb.init_dc_blocker_state(device=device) for _ in range(g)]
+            sp = [dcb.init_dc_blocker_state(device=device) for _ in range(g)]
+            w = d = 0
+            for lo in range(0, n, block):
+                rows = [x[r, lo:lo + block] for r in range(g)]
+                sk, ok = dcb.dc_block_fast(sk, rows, [p] * g)
+                sp, op = dcb.dc_block_fast_plain(sp, rows, [p] * g)
+                diff = (ok.int() - op.int()).abs()
+                w = max(w, int(diff.max()))
+                d += int((diff != 0).sum())
+            xs = [int(s.x_prev) == int(q.x_prev) for s, q in zip(sk, sp)]
+            ys = max(abs(int(s.y_prev) - int(q.y_prev))
+                     for s, q in zip(sk, sp))
+            require(w <= 1 and all(xs) and ys <= 1,
+                    f"K8 pole {pole}, {g} rows: max |diff| {w} LSB, x_prev "
+                    f"equal {all(xs)}, y_prev within {ys}")
+            log(f"(b) K8 pole {pole}, {g} row(s), {n} samples in blocks of "
+                f"{block}: max |diff| {w} LSB, {d} of {g * n} samples "
+                f"differ; states: x_prev equal, y_prev within {ys}")
+            worst, differ, total = max(worst, w), differ + d, total + g * n
+    row = torch.from_numpy(dc_rows(np.random.default_rng(0), 1, block)).to(
+        device)[0]
+    st = [dcb.init_dc_blocker_state(device=device)]
+    p = dcb.make_pole_coeff(0.9999)
+    t = kernel_times(lambda: dcb.dc_block_fast_plain(st, [row], [p]),
+                     lambda: dcb.dc_block_fast(st, [row], [p]), 10, 50)
+    # 4 B in and 2 B out a sample; a subtraction and a multiply-add a
+    # sample of float64 (the recurrence's least work)
+    t_bytes = (block * 6 + 16) / HBM_BYTES
+    t_ops = 3 * block / F64_CORE_OPS
+    t["bound_ms"] = max(t_bytes, t_ops) * 1e3
+    t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"K8 the pager's DC-blocked FLEX row ({block} samples): kernel "
+        f"{t['ms']:.4f} ms (call {t['call_ms']:.4f}), plain "
+        f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+        f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of it")
+    return {"max_abs_err": worst, "differ": differ, "samples": total,
+            "times": t}
+
+
+def check_exact_fm(chain, pager_vals, device) -> dict:
+    """(c) K9 against its plain version, exactly (PCM, channelized IQ, FM
+    carry), on K5's sums and the host rotator at the exact pager block and
+    at etc/multifm_rtlsdr_8ch.json's block, and on adversarial sums at the
+    pager block's shape; then K9's times at the pager block."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
+    from tsl_sdr_tpu_torch.ops import exact_fir as k5
+    from tsl_sdr_tpu_torch.ops import fm
+    from tsl_sdr_tpu_torch.runtime.native import rotator_seq
+    from tsl_sdr_tpu_torch.testing.stage_inputs import k9_inputs
+    from tsl_sdr_tpu_torch.utils.config import MultifmConfig
+
+    cfg8 = MultifmConfig.load(HERE / "etc" / "multifm_rtlsdr_8ch.json")
+    ch8 = MultifmChain.from_config(cfg8, exact=True, device=device)
+    block8 = 262_144 - 262_144 % ch8.block_quantum
+    vals8 = np.random.default_rng(15).integers(
+        -32768, 32768, size=ch8.packed_plan.carry_vals + 2 * block8).astype(
+            np.int16)
+    inputs = {}
+    for name, (c, vals) in {"exact pager block": (chain, pager_vals),
+                            "multifm_rtlsdr_8ch block": (ch8, vals8)}.items():
+        plan = c.packed_plan
+        v = torch.from_numpy(vals.copy()).to(device)
+        a_re, a_im = k5.exact_fir(c.taps, v[:plan.carry_vals],
+                                  v[plan.carry_vals:], "q14")
+        nc = c.nr_channels
+        k = a_re.numel() // nc
+        rot = c.init_exact_packed_state().rot
+        seq = torch.from_numpy(rotator_seq(rot, plan.rot_incr_i32, k)).to(
+            device)
+        last = torch.from_numpy(np.random.default_rng(k).integers(
+            -32768, 32768, size=(nc, 2)).astype(np.int32)).to(device)
+        inputs[name] = (a_re.reshape(k, nc), a_im.reshape(k, nc), seq, last)
+    k, nc = inputs["exact pager block"][0].shape
+    for name in ("full scale", "zero vectors", "table abscissae"):
+        inputs[name] = tuple(torch.from_numpy(a).to(device)
+                             for a in k9_inputs(name, k, nc, seed=21))
+    for name, args in inputs.items():
+        got = fm.exact_fm(*args)
+        want = fm.exact_fm_plain(*args)
+        torch.cuda.synchronize()
+        eq = [torch.equal(x, y) for x, y in zip(got, want)]
+        require(all(eq), f"K9 {name}: pcm, ch, fm_last equal {eq}")
+        log(f"(c) K9 {name} [{args[0].shape[0]} x {args[0].shape[1]}]: PCM, "
+            f"channelized IQ and FM carry bit-equal to the plain version")
+    args = inputs["exact pager block"]
+    t = kernel_times(lambda: fm.exact_fm_plain(*args),
+                     lambda: fm.exact_fm(*args), 10, 50)
+    pcm, ch, last2 = fm.exact_fm(*args)
+    # ~40 operations a sample: two derotations, the products, the LUT
+    # arctangent and the scale
+    t["bound_ms"], t["bound_by"] = bound(
+        0, nbytes(*args, pcm, ch, last2) + 257 * 4, 40 * k * nc)
+    log(f"K9 the exact pager block ({k} x {nc}): kernel {t['ms']:.4f} ms "
+        f"(call {t['call_ms']:.4f}), plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.5f} ms ({t['bound_by']}), "
+        f"{t['bound_ms'] / t['ms']:.1%} of it")
+    return {"shapes": len(inputs), "times": t}
+
+
+def block_launches(fn) -> dict:
+    """The kernels and copies the device ran in one call of ``fn``, after
+    a warm-up, from torch.profiler's device events (the most of three
+    profiles: the profiler now and then drops a record)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = {"kernels": 0, "copies": 0}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in ev)
+        if len(ev) > best["kernels"] + best["copies"]:
+            best = {"kernels": len(ev) - copies, "copies": copies}
+    return best
+
+
+def block_costs(pipe, iq, device) -> dict:
+    """The pager block's device launches and its engine step's time (the
+    upload and every device stage, back to back), with K7 and K8 and with
+    their plain versions (the stages as torch ops), in turns; the same for
+    the exact pager block's dispatch half (K5, the host rotator, K9, the
+    PCM's copy), with K9 and with its plain version."""
+    from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
+    from tsl_sdr_tpu_torch.testing import pager
+
+    plan = pipe.chain.taps.plan
+    pipe._stream_init(iq[: plan.carry_len])
+    st = pipe._stream["st"]
+    flat = iq[plan.carry_len: plan.carry_len + pipe.block_size].reshape(-1)
+
+    def step():
+        return pipe._engine.step(st, flat, pipe._stream)
+
+    exact = MultifmChain(pager.lpf_taps(), list(pager.OFFSETS_HZ), pager.FS,
+                         pager.DECIMATION, exact=True, device=device)
+    est = exact.init_state(iq[: exact.carry_len])
+    eblock = iq[exact.carry_len: exact.carry_len + pipe.block_size]
+
+    def exact_step():
+        return exact.step_exact_packed_begin(est, eblock)
+
+    res = {}
+    for name, fn, swap in (("pager block", step,
+                            ("egress_gate", "dc_block_fast")),
+                           ("exact pager block", exact_step, ("exact_fm",))):
+        after = block_launches(fn)
+        with plain_kernels(swap):
+            before = block_launches(fn)
+
+        def plain_timer(f, reps, swap=swap):
+            with plain_kernels(swap):
+                return time_ms(f, reps)
+
+        ms, plain_ms = in_turns(fn, fn, 10, 10, timer=time_ms,
+                                plain_timer=plain_timer)
+        res[name] = {"launches": after, "launches_before": before,
+                     "ms": ms, "plain_ms": plain_ms}
+        log(f"{name}: {after['kernels']} kernels + {after['copies']} copies "
+            f"a block with {', '.join(swap)} (the stages as torch ops: "
+            f"{before['kernels']} + {before['copies']}); step "
+            f"{ms:.3f} ms a block, {plain_ms:.3f} with the plain stages "
+            f"(in turns)")
+    pipe.stream_reset()
+    return res
+
+
+def last_stages_phase(pipe, iq, device) -> dict:
+    """Phase 21: K7, K8 and K9 against their plain versions, their times
+    and bounds, and the launches and step time of a pager block and an
+    exact pager block with and without them."""
+    import threading
+
+    # host-paced times read slower while other threads hold the GIL
+    log(f"threads alive at phase 21: "
+        f"{[t.name for t in threading.enumerate()]}")
+    plan = pipe.chain.packed_plan
+    pager_vals = iq[: plan.carry_len + pipe.block_size].reshape(-1)
+    res = {"gate": check_gate(device), "dc": check_dc_fast(device),
+           "exact_fm": check_exact_fm(pipe.chain, pager_vals, device),
+           "blocks": block_costs(pipe, iq, device)}
+    res["kernels"] = [
+        {"name": "egress_gate", "route": "cuda",
+         "source": "tsl_sdr_tpu_torch/csrc/gate.cu",
+         "replaces": "tsl_sdr_tpu/models/pipeline.py:219",
+         "max_abs_err": 0.0,
+         **res["gate"]["times"]["the pager's POCSAG group"]},
+        {"name": "dc_block_fast", "route": "cuda",
+         "source": "tsl_sdr_tpu_torch/csrc/dc_fast.cu",
+         "replaces": "tsl_sdr_tpu/ops/dc_blocker.py:66",
+         "max_abs_err": float(res["dc"]["max_abs_err"]),
+         **res["dc"]["times"]},
+        {"name": "exact_fm", "route": "cuda",
+         "source": "tsl_sdr_tpu_torch/csrc/exact_fm.cu",
+         "replaces": "tsl_sdr_tpu/models/channelizer.py:281",
+         "max_abs_err": 0.0, **res["exact_fm"]["times"]},
+    ]
+    return res
+
+
 def smoke(device: str) -> dict:
-    """Phases 2-20 on ``device``; returns the kernels' summary."""
+    """Phases 2-21 on ``device``; returns the kernels' summary."""
     import torch
 
     from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
@@ -3532,7 +3885,9 @@ def smoke(device: str) -> dict:
 
     totals = {}
     with tempfile.TemporaryDirectory() as tmp:
-        run = on_path("the pager pipeline", ("chain_fm", "row_resample"),
+        run = on_path("the pager pipeline",
+                      ("chain_fm", "row_resample", "egress_gate",
+                       "dc_block_fast"),
                       lambda: run_main_path(pager, iq, expected, device,
                                             Path(tmp)), totals)
 
@@ -3575,6 +3930,7 @@ def smoke(device: str) -> dict:
     exact = exact_phases(pipe, iq, expected, device, totals)
     mesh = mesh_phase(pager, iq, expected, totals)
     surface = surface_phase(pager, iq, expected, device, totals)
+    last = last_stages_phase(pipe, iq, device)
     del iq
     wide = wide_phase(device, totals)
     wide_k = wide["kernels"]
@@ -3594,6 +3950,7 @@ def smoke(device: str) -> dict:
         "costas": costas,
         "mesh": mesh,
         "surface": surface,
+        "last": last,
         "kernels": [
             {"name": "chain_fm", "route": "cuda",
              "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
@@ -3622,6 +3979,7 @@ def smoke(device: str) -> dict:
              "replaces": "tsl_sdr_tpu/ops/packed_fir.py:286",
              "max_abs_err": wide_k["err"], **wide_k[256]["exact_fir_raw"]},
             costas["kernel"],
+            *last["kernels"],
         ],
         "launches": totals,
     }
@@ -3744,6 +4102,13 @@ def main() -> int:
         log(f"{card} | weak-scaling witness, {n} process(es) on cuda:0 "
             f"(bytes; walls are the overhead of ranks sharing one card, "
             f"not scaling): {json.dumps(r)}")
+    last = summary["last"]
+    for name, r in last["blocks"].items():
+        log(f"{card} | {name}: {json.dumps(r)}")
+    for name, t in last["gate"]["times"].items():
+        log(f"{card} | K7 {name}: {json.dumps(t)}")
+    log(f"{card} | K8 over {last['dc']['samples']} samples: max |diff| "
+        f"{last['dc']['max_abs_err']} LSB, {last['dc']['differ']} differ")
     for kernel in ("k3", "k4"):
         for name, k in summary[kernel].items():
             log(f"{card} | {kernel.upper()} {name}: {json.dumps(k)}")

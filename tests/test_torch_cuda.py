@@ -24,7 +24,10 @@ carry included; K6 (the chunked Costas loop) EXACTLY equal, outputs and
 state (its float ops are written with _rn intrinsics in the plain
 version's order and its sums in the plain version's tree), and the Costas
 chain's int16 output equal to the run with every kernel swapped for its
-plain version.
+plain version; K7 (the egress gate) EXACTLY equal, output buffer and new
+tail; K8 (the fast DC blocker) within 1 LSB (float64 sums in another
+order); K9 (the exact tier's derotation and discriminator) EXACTLY
+equal.
 """
 
 import dataclasses
@@ -39,11 +42,11 @@ from tsl_sdr_tpu_torch.models import costas_channel
 from tsl_sdr_tpu_torch.ops import chain as k1
 from tsl_sdr_tpu_torch.ops import costas as k6
 from tsl_sdr_tpu_torch.ops import exact_fir as k5
-from tsl_sdr_tpu_torch.ops import dc_blocker
+from tsl_sdr_tpu_torch.ops import dc_blocker, fm, gate
 from tsl_sdr_tpu_torch.ops import frame_resampler as k4
 from tsl_sdr_tpu_torch.ops import polyphase, q14
 from tsl_sdr_tpu_torch.ops import row_resampler as k3
-from tsl_sdr_tpu_torch.testing import pager
+from tsl_sdr_tpu_torch.testing import pager, stage_inputs
 from tsl_sdr_tpu_torch.utils.filter_design import (
     design_rational_resampler_filter)
 
@@ -789,3 +792,100 @@ def test_costas_wrapper_raises_on_bad_input(cuda):
     with pytest.raises(ValueError, match="on cpu"):
         k6.costas_block_planes(params, k6.init_costas_state(params, 4, "cpu"),
                                x, x)
+
+
+# -- K7, K8, K9: the block's last stages --------------------------------------
+
+@pytest.mark.parametrize("case", stage_inputs.GATE_CASES, ids=lambda c: c[0])
+def test_gate_kernel_matches_plain(cuda, case):
+    """K7 at the pager's groups, the mixed capture's AIS shape, K % 8 !=
+    0, K < TAIL and 130 rows: output buffer and new tail byte-equal to the
+    plain version, at two launches (the flag scratch is reset)."""
+    _, mode, g, k, types, layout, plants = case
+    rows, tail = stage_inputs.gate_inputs(mode, g, k, types, plants, 9)
+    if layout == "columns":
+        mat = torch.from_numpy(np.stack(rows, axis=1)).to(cuda)
+        trows = [mat[:, r] for r in range(g)]
+    else:
+        trows = [torch.from_numpy(r).to(cuda) for r in rows]
+    tail = torch.from_numpy(tail).to(cuda)
+    want = gate.egress_gate_plain(mode, trows, tail)
+    before = gate.egress_gate.launches
+    for _ in range(2):
+        got = gate.egress_gate(mode, trows, tail)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert gate.egress_gate.launches == before + 2 * -(-g // gate.MAX_ROWS)
+    assert stage_inputs.tested_rows(mode, k, plants) <= set(
+        want[0][:, 0].nonzero().flatten().tolist())
+
+
+@pytest.mark.parametrize("g,pole", [(1, 0.9999), (6, 0.5), (65, 0.9999)])
+def test_dc_fast_kernel_matches_plain(cuda, g, pole):
+    """K8 over blocks of the pager's 54,400 samples (the last ragged), the
+    states carried: within 1 LSB of the plain version (float64 sums in
+    another order; expect no sample to differ)."""
+    x = torch.from_numpy(stage_inputs.dc_rows(np.random.default_rng(g), g,
+                                              300_000)).to(cuda)
+    p = dc_blocker.make_pole_coeff(pole)
+    sk = [dc_blocker.init_dc_blocker_state(device=cuda) for _ in range(g)]
+    sp = [dc_blocker.init_dc_blocker_state(device=cuda) for _ in range(g)]
+    for lo in range(0, x.shape[1], 54_400):
+        rows = [x[r, lo:lo + 54_400] for r in range(g)]
+        sk, ok = dc_blocker.dc_block_fast(sk, rows, [p] * g)
+        sp, op = dc_blocker.dc_block_fast_plain(sp, rows, [p] * g)
+        assert (ok.int() - op.int()).abs().max() <= 1
+    for a, b in zip(sk, sp):
+        assert int(a.x_prev) == int(b.x_prev)
+        assert abs(int(a.y_prev) - int(b.y_prev)) <= 1
+
+
+@pytest.mark.parametrize("name", stage_inputs.K9_CASES)
+def test_exact_fm_kernel_matches_plain(cuda, name):
+    """K9 at the exact pager block's shape (130,560 x 8) on random and
+    adversarial sums: PCM, channelized IQ and FM carry bit-equal."""
+    args = [torch.from_numpy(a).to(cuda)
+            for a in stage_inputs.k9_inputs(name, 130_560, 8)]
+    got = fm.exact_fm(*args)
+    want = fm.exact_fm_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_exact_chain_runs_k9(cuda):
+    """The exact chain's step launches K9 once a block, and its PCM and
+    channelized IQ equal the CPU's."""
+    rng = np.random.default_rng(3)
+    iq = rng.integers(-3000, 3000, size=(3 * 8192 + 577, 2)).astype(np.int16)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        ch = MultifmChain(pager.lpf_taps(), pager.OFFSETS_HZ[:3], pager.FS,
+                          pager.DECIMATION, exact=True, device=dev)
+        st = ch.init_state(iq[:ch.carry_len])
+        n = (len(iq) - ch.carry_len) // ch.block_quantum * ch.block_quantum
+        before = fm.exact_fm.launches
+        st, pcm, chan = ch.step_debug(st, iq[ch.carry_len:ch.carry_len + n])
+        outs[dev.type] = (pcm, chan)
+        if dev.type == "cuda":
+            assert fm.exact_fm.launches == before + 1
+    np.testing.assert_array_equal(outs["cuda"][0], outs["cpu"][0])
+    np.testing.assert_array_equal(outs["cuda"][1], outs["cpu"][1])
+
+
+def test_new_wrappers_raise_on_bad_input(cuda):
+    """K7, K8 and K9 refuse what their kernels do not take."""
+    tail = torch.zeros((1, 2560), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="int16 or float32"):
+        gate.egress_gate("pocsag", [torch.zeros(64, device=cuda,
+                                                dtype=torch.float64)], tail)
+    with pytest.raises(ValueError, match="shorter than its"):
+        gate.egress_gate("pocsag", [torch.zeros(64, device=cuda)],
+                         tail[:, :1024])
+    st = dc_blocker.init_dc_blocker_state(device="cpu")
+    with pytest.raises(ValueError, match="int32 scalars"):
+        dc_blocker.dc_block_fast([st], [torch.zeros(64, device=cuda)], [1])
+    z = torch.zeros((8, 2), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError, match="seq"):
+        fm.exact_fm(z, z, z, torch.zeros((2, 2), dtype=torch.int32,
+                                         device=cuda))

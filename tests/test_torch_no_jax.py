@@ -47,6 +47,8 @@ import tsl_sdr_tpu_torch.runtime.stream
 import tsl_sdr_tpu_torch.sources
 import tsl_sdr_tpu_torch.sources.hw
 import tsl_sdr_tpu_torch.testing.mock_radios
+import tsl_sdr_tpu_torch.testing.stage_inputs
+import tsl_sdr_tpu_torch.ops.gate
 from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
 from tsl_sdr_tpu_torch.testing import pager
 from tsl_sdr_tpu_torch.testing import pocsag_gen

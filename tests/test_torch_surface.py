@@ -400,6 +400,10 @@ def test_mock_radios_env_for_and_install(monkeypatch):
     assert list(env) == ["TSL_RTLSDR_LIB"]
     assert Path(env["TSL_RTLSDR_LIB"]) == mock_radios.build("rtlsdr")
     assert Path(env["TSL_RTLSDR_LIB"]).is_file()
-    monkeypatch.delenv("TSL_RTLSDR_LIB", raising=False)
+    # monkeypatch owns the variable (set, even to "", so that teardown
+    # restores it, or its absence) before install() writes os.environ
+    # directly: otherwise the mock stays installed for every later test in
+    # the process
+    monkeypatch.setenv("TSL_RTLSDR_LIB", "")
     mock_radios.install("rtlsdr")
     assert os.environ["TSL_RTLSDR_LIB"] == env["TSL_RTLSDR_LIB"]

@@ -21,6 +21,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tsl_sdr_tpu_torch"
 LIB_NAME = "libtsl_torch_kernels.so"
@@ -48,6 +50,9 @@ SIGNATURES = {
     "tsl_dc_block_exact": [_P, _P, _P, _L, _I, _I, _P],
     "tsl_costas_chunks": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
                           _F, _F, _F, _F, _F, _P],
+    "tsl_egress_gate": [_P, _P, _P, _I, _L, _P, _I, _P, _L, _P, _P, _I, _P],
+    "tsl_dc_block_fast": [_P, _P, _P, _P, _P, _P, _I, _L, _P, _P, _P],
+    "tsl_exact_fm": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -153,6 +158,27 @@ def load() -> ctypes.CDLL:
         lib.tsl_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+def row_table(rows, device, name: str):
+    """The host arrays of a launch's row table (``csrc/row_table.cuh``):
+    data pointers, strides in elements and float32 flags of ``rows``, a
+    list of ``[K]`` int16 or float32 tensors of one length on ``device``
+    (any stride). Returns (K, pointers, strides, flags)."""
+    k = rows[0].shape[-1] if rows else 0
+    for r in rows:
+        if r.dim() != 1 or r.shape[0] != k:
+            raise ValueError(f"{name}: rows must be [K] tensors of one "
+                             f"length, got {[tuple(x.shape) for x in rows]}")
+        if r.dtype not in (torch.int16, torch.float32):
+            raise ValueError(f"{name}: rows must be int16 or float32, not "
+                             f"{r.dtype}")
+        if r.device != device:
+            raise ValueError(f"{name}: a row on {r.device}, not {device}")
+    n = len(rows)
+    return (k, (ctypes.c_longlong * n)(*(r.data_ptr() for r in rows)),
+            (ctypes.c_longlong * n)(*(r.stride(0) for r in rows)),
+            (ctypes.c_int * n)(*(r.dtype == torch.float32 for r in rows)))
 
 
 def check(err: int, name: str) -> None:

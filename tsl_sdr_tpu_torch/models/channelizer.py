@@ -12,9 +12,9 @@ discriminator; 16-bit PCM out (reference ``multifm/demod.c:49-121``).
   (:func:`tsl_sdr_tpu_torch.ops.exact_fir.exact_fir`); the reference's
   serial Q.14 rotator, precomputed on the host by the native helper and
   uploaded (4.18 MB a block at the pager width); then derotation, rounding
-  and the LUT discriminator (:func:`tsl_sdr_tpu_torch.ops.fm.fm_demod_exact`)
-  as integer torch ops on the card. Its PCM is the reference C's, byte for
-  byte.
+  and the LUT discriminator in one launch, kernel K9
+  (:func:`tsl_sdr_tpu_torch.ops.fm.exact_fm`). Its PCM is the reference
+  C's, byte for byte.
 
 As in the JAX package the chain defaults to ``exact=True``. Unlike it, the
 port runs the exact tier's derotation and discriminator on the device in
@@ -272,14 +272,9 @@ class MultifmChain:
         # output and never renormalises, filter/direct_fir.c:152-172)
         rot = state.rot.copy()
         seq = upload(rotator_seq(rot, self.packed_plan.rot_incr_i32, k),
-                      self.device).to(torch.int64)
-        are = a_re.reshape(k, c).to(torch.int64)
-        aim = a_im.reshape(k, c).to(torch.int64)
-        d_re = (are * seq[..., 0] - aim * seq[..., 1]).to(torch.int32)
-        d_im = (are * seq[..., 1] + aim * seq[..., 0]).to(torch.int32)
-        ch = torch.stack([q14.round_q28_q14(d_re), q14.round_q28_q14(d_im)],
-                         dim=-1)                                # [K, C, 2]
-        pcm, fm_last = fm.fm_demod_exact(ch.transpose(0, 1), state.fm_last)
+                     self.device)
+        pcm, ch, fm_last = fm.exact_fm(a_re.reshape(k, c), a_im.reshape(k, c),
+                                       seq, state.fm_last)
         pending = (HostCopy(pcm), ch)
         return ExactPackedState(carry=carry, rot=rot, fm_last=fm_last), \
             pending

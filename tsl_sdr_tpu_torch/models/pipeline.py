@@ -14,8 +14,10 @@ without a mesh has a one-device mesh: one time span, one bank):
    kernel K3 (``ops.row_resampler``) for a plan with a packed-row form,
    kernel K4 (``ops.frame_resampler``) for one without (25/16 at
    decimation 50, say), as the JAX pipeline's ``resample_step`` picks;
-5. DC-block (chunked linear scan, ``ops.dc_blocker``);
-6. sign-slice, sync prefilter and bit-pack (``ops.sync_prefilter``).
+5. DC-block, one launch for the DC-blocked rows of one length (kernel
+   K8, ``ops.dc_blocker.dc_block_fast``);
+6. sign-slice, sync prefilter and bit-pack, one launch a pack group
+   (kernel K7, ``ops.gate``).
 
 The host uploads each block from pinned memory, starts the device->host
 copies of the small gated outputs as soon as the block is queued, keeps
@@ -38,7 +40,7 @@ outputs keep the layout of the pipeline without a mesh, so the drain, the
 checkpoints and the decoders do not change.
 
 Bit-exact engine: per block, the channelizer's exact step (kernel K5, the
-host rotator, the integer discriminator on the device) with
+host rotator, kernel K9's derotation and LUT discriminator) with
 ``inflight_depth`` blocks in flight; then, in dispatch order (inline or on
 the drain worker), polarity inversion, each ratio group's exact resampler
 (K3 or K4 with Q.14 output, one launch for the group's rows), the exact
@@ -70,7 +72,7 @@ from tsl_sdr_tpu_torch.models.flex import FlexDecoder
 from tsl_sdr_tpu_torch.models.pocsag import PocsagDecoder
 from tsl_sdr_tpu_torch.models.resampler import ResamplerChain
 from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
-from tsl_sdr_tpu_torch.ops import polyphase, q14, sync_prefilter
+from tsl_sdr_tpu_torch.ops import gate, polyphase, q14, sync_prefilter
 from tsl_sdr_tpu_torch.ops.q14 import to_int16
 from tsl_sdr_tpu_torch.utils.filter_design import (
     design_rational_resampler_filter)
@@ -298,53 +300,26 @@ class _SizedProgram:
         return rs2, ch_rows
 
     def finish(self, dc: dict, tails: dict, ch_rows: dict):
-        """DC block, sign slice, sync prefilter and bit pack: -> (DC
-        states, prefilter tails, (pack_out, raw_out))."""
-        pipe = self.pipe
+        """DC block (K8, one launch for the rows of one length), then the
+        sign slice, sync prefilter and bit pack (K7, one launch a pack
+        group): -> (DC states, prefilter tails, (pack_out, raw_out))."""
         bank = self.bank
         dc2 = {}
+        by_len = {}
         for i, coeff in bank.dc_items:
-            dc2[i], ch_rows[i] = dcb.dc_blocker_step_fast(
-                dc[i], to_int16(ch_rows[i]), coeff)
+            by_len.setdefault(ch_rows[i].shape[-1], []).append((i, coeff))
+        for items in by_len.values():
+            states, out = dcb.dc_block_fast(
+                [dc[i] for i, _ in items], [ch_rows[i] for i, _ in items],
+                [coeff for _, coeff in items])
+            for j, (i, _) in enumerate(items):
+                dc2[i], ch_rows[i] = states[j], out[j]
         tails2 = {}
         pack_out = {}
         for pgid, pg in bank.pack_groups.items():
-            tail = pipe._tail_bits[pgid]
-            rows = torch.stack([ch_rows[i] for i in pg["idx"]])
-            if pg["kind"] == "pcm":
-                # FLEX: the decoder needs real amplitudes (trained 4FSK
-                # thresholds), but its SYNC_1 hunt is the sign slice
-                # pcm >= 0 — prefilter here, gate the int16 rows
-                rows = to_int16(rows)
-                predu = (rows >= 0).to(torch.uint8)
-                k_out = rows.shape[1]
-                full = torch.cat([tails[pgid], predu], dim=1)
-                flags = sync_prefilter.flex_any_candidate(full, k_out)
-                tails2[pgid] = full[:, -tail:].contiguous()
-                # ONE int16 buffer: [flag | last TAIL pcm | pcm rows]
-                pack_out[pgid] = torch.cat(
-                    [flags.to(torch.int16)[:, None], rows[:, -tail:], rows],
-                    dim=1)
-                continue
-            if rows.is_floating_point():
-                # the host oracle and the C reference slice int16-TRUNCATED
-                # PCM: a -0.4 sample is bit 0, not bit 1
-                rows = torch.trunc(rows)
-            pred = (rows > 0) if pg["is_gt"] else (rows < 0)
-            predu = pred.to(torch.uint8)
-            k_out = predu.shape[1]
-            full = torch.cat([tails[pgid], predu], dim=1)
-            if pgid == "pocsag":
-                flags = sync_prefilter.pocsag_any_candidate(full, k_out)
-            else:
-                flags = sync_prefilter.ais_any_candidate(full, k_out)
-            tails2[pgid] = full[:, -tail:].contiguous()
-            # ONE output buffer per group: flags byte + packed tail +
-            # packed bits — a single device->host transfer unit
-            pack_out[pgid] = torch.cat(
-                [flags.to(torch.uint8)[:, None],
-                 sync_prefilter.packbits(tails2[pgid]),
-                 sync_prefilter.packbits(predu)], dim=1)
+            # ONE output buffer a group, the unit of its device->host copy
+            pack_out[pgid], tails2[pgid] = gate.egress_gate(
+                pgid, [ch_rows[i] for i in pg["idx"]], tails[pgid])
         raw_out = {rgid: to_int16(torch.stack([ch_rows[i] for i in idxs]))
                    for rgid, idxs in bank.raw_groups.items()}
         return dc2, tails2, (pack_out, raw_out)

@@ -14,22 +14,27 @@ computes ``d_n = (x_n << 14) - (x_{n-1} << 14)`` on all lanes and runs
 only ``acc = (acc + d_n) - p * y; y = acc >> 14`` serially; on the CPU a
 plain loop (:func:`dc_block_exact_plain`).
 
-The fast tier (:func:`dc_blocker_step_fast`, the pipeline's) is the float
+The fast tier (:func:`dc_block_fast` over a block's rows of one length,
+the pipeline's; :func:`dc_blocker_step_fast` for one row) is the float
 form of the recurrence, the first-order IIR
 
     y[n] = q * y[n-1] + (x[n] - x[n-1]),     q = 1 - p / 2^14
 
-which the JAX package evaluates with ``lax.associative_scan``. Here it is
-a two-level chunked scan in float64 built from matrix products with
-non-negative powers of ``q`` (no growing ``q^-n`` factor can overflow):
-within chunks of ``L`` samples, ``local = u @ Tq^T`` with ``Tq[i, j] =
-q^(i-j)``; across chunks, the chunk-end values go through the same form with
-``q^L``. Output tracks the exact integer tier to a few LSB, like the JAX
-fast tier (the tests hold the two within 2 LSB).
+which the JAX package evaluates with ``lax.associative_scan``. On the card
+it is kernel K8, ``csrc/dc_fast.cu`` (a chunked linear scan in float64, a
+CTA a row). The plain version (:func:`dc_block_fast_plain`) is a two-level
+chunked scan in float64 built from matrix products with non-negative
+powers of ``q`` (no growing ``q^-n`` factor can overflow): within chunks of
+``L`` samples, ``local = u @ Tq^T`` with ``Tq[i, j] = q^(i-j)``; across
+chunks, the chunk-end values go through the same form with ``q^L``. The
+two sum in other orders and agree within 1 LSB. Output tracks the exact
+integer tier to a few LSB, like the JAX fast tier (the tests hold the two
+within 2 LSB).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -39,6 +44,7 @@ from tsl_sdr_tpu_torch.kernels import build
 from tsl_sdr_tpu_torch.ops import q14
 
 _CHUNK = 256
+_FAST_ROWS = 64   # rows a K8 launch (kRows in dc_fast.cu)
 
 
 class DcBlockerState(NamedTuple):
@@ -59,42 +65,96 @@ def init_dc_blocker_state(*, device) -> DcBlockerState:
     return DcBlockerState(x_prev=z(), y_prev=z(), acc=z())
 
 
-def _decay_matrix(q: float, n: int, device) -> torch.Tensor:
-    """[n, n] lower-triangular ``q^(i-j)`` for i >= j, else 0."""
+def _decay_matrix(q: torch.Tensor, n: int, device) -> torch.Tensor:
+    """[G, n, n] lower-triangular ``q^(i-j)`` for i >= j, else 0, for each
+    of the ``G`` poles ``q``."""
     k = torch.arange(n, device=device, dtype=torch.float64)
     e = k[:, None] - k[None, :]
-    return torch.where(e >= 0, torch.pow(q, e.clamp(min=0)),
+    return torch.where(e >= 0, torch.pow(q[:, None, None], e.clamp(min=0)),
                        torch.zeros((), dtype=torch.float64, device=device))
 
 
 def dc_blocker_step_fast(state: DcBlockerState, block: torch.Tensor, p: int):
-    """block [K] int16 PCM -> (new state, [K] int16)."""
-    dev = block.device
-    x = block.to(torch.float64)
-    q = 1.0 - p / q14.Q14_ONE
-    x_prev = state.x_prev.to(torch.float64) / q14.Q14_ONE
-    y0 = state.y_prev.to(torch.float64)
-    u = x - torch.cat([x_prev[None], x[:-1]])
-    k = u.shape[0]
+    """block [K] PCM (int16, or float cast as :func:`q14.to_int16`) ->
+    (new state, [K] int16): one row of :func:`dc_block_fast`."""
+    states, out = dc_block_fast([state], [block], [p])
+    return states[0], out[0]
+
+
+def dc_block_fast(states, rows, coeffs):
+    """The fast tier over ``G`` rows of one length (kernel K8): ``states``
+    ``G`` :class:`DcBlockerState`, ``rows`` ``G`` ``[K]`` int16 or float32
+    tensors (any stride; floats go through :func:`q14.to_int16`), ``coeffs``
+    ``G`` pole coefficients ``p``. Returns (``G`` new states, out [G, K]
+    int16); a new state's ``x_prev``/``y_prev`` are views into one new
+    tensor and its ``acc`` the old state's. On a CUDA tensor it launches
+    ``csrc/dc_fast.cu`` (one launch for up to 64 rows); on a CPU tensor it
+    runs :func:`dc_block_fast_plain`."""
+    dev = rows[0].device if rows else None
+    if dev is not None and dev.type == "cpu":
+        return dc_block_fast_plain(states, rows, coeffs)
+    if dev is None or dev.type != "cuda":
+        raise ValueError(f"dc_block_fast runs on cuda or cpu, not {dev}")
+    g = len(rows)
+    if len(states) != g or len(coeffs) != g:
+        raise ValueError(f"{g} rows, {len(states)} states, {len(coeffs)} "
+                         f"coefficients")
+    k, ptrs, strides, f32 = build.row_table(rows, dev, "dc_block_fast")
+    if k == 0:
+        raise ValueError("dc_block_fast needs at least one sample")
+    for st in states:
+        for v in (st.x_prev, st.y_prev):
+            if v.dtype != torch.int32 or v.numel() != 1 or v.device != dev:
+                raise ValueError(f"state: expected int32 scalars on {dev}, "
+                                 f"got {v.dtype}{list(v.shape)} on "
+                                 f"{v.device}")
+    x_prev = (ctypes.c_longlong * g)(*(s.x_prev.data_ptr() for s in states))
+    y_prev = (ctypes.c_longlong * g)(*(s.y_prev.data_ptr() for s in states))
+    q = (ctypes.c_double * g)(*(1.0 - p / q14.Q14_ONE for p in coeffs))
+    out = torch.empty((g, k), dtype=torch.int16, device=dev)
+    st_out = torch.empty((g, 2), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = build.load().tsl_dc_block_fast(ptrs, strides, f32, x_prev, y_prev,
+                                         q, g, k, out.data_ptr(),
+                                         st_out.data_ptr(), stream)
+    build.check(err, "tsl_dc_block_fast")
+    dc_block_fast.launches += -(-g // _FAST_ROWS)
+    return [DcBlockerState(x_prev=st_out[i, 0], y_prev=st_out[i, 1],
+                           acc=states[i].acc) for i in range(g)], out
+
+
+dc_block_fast.launches = 0
+
+
+def dc_block_fast_plain(states, rows, coeffs):
+    """Plain torch version of :func:`dc_block_fast`, on any device: the
+    chunked float64 scan of the module docstring, the rows side by side."""
+    dev = rows[0].device
+    x = q14.to_int16(torch.stack(list(rows))).to(torch.float64)   # [G, K]
+    g, k = x.shape
+    q = torch.tensor([1.0 - p / q14.Q14_ONE for p in coeffs],
+                     dtype=torch.float64, device=dev)
+    x_prev = torch.stack([s.x_prev for s in states]).to(
+        torch.float64) / q14.Q14_ONE
+    y0 = torch.stack([s.y_prev for s in states]).to(torch.float64)
+    u = x - torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
     nb = -(-k // _CHUNK)
-    u = torch.nn.functional.pad(u, (0, nb * _CHUNK - k)).view(nb, _CHUNK)
-    local = u @ _decay_matrix(q, _CHUNK, dev).T          # [nb, L]
+    u = torch.nn.functional.pad(u, (0, nb * _CHUNK - k)).view(g, nb, _CHUNK)
+    local = u @ _decay_matrix(q, _CHUNK, dev).transpose(1, 2)  # [G, nb, L]
     # y at the end of chunk b: c_b = q^L c_{b-1} + local[b, -1], c_{-1} = y0
     ql = q ** _CHUNK
     idx = torch.arange(nb, device=dev, dtype=torch.float64)
-    ends = (_decay_matrix(ql, nb, dev) @ local[:, -1]
-            + torch.pow(ql, idx + 1) * y0)
-    c_prev = torch.cat([y0[None], ends[:-1]])             # y entering chunk b
-    pw = torch.pow(q, torch.arange(1, _CHUNK + 1, device=dev,
-                                   dtype=torch.float64))
-    y = (local + c_prev[:, None] * pw[None, :]).reshape(-1)[:k]
+    ends = ((_decay_matrix(ql, nb, dev) @ local[:, :, -1:])[..., 0]
+            + torch.pow(ql[:, None], idx + 1) * y0[:, None])
+    c_prev = torch.cat([y0[:, None], ends[:, :-1]], dim=1)  # y entering b
+    pw = torch.pow(q[:, None], torch.arange(1, _CHUNK + 1, device=dev,
+                                            dtype=torch.float64))
+    y = (local + c_prev[:, :, None] * pw[:, None, :]).reshape(g, -1)[:, :k]
     out = torch.clamp(torch.round(y), -32768, 32767).to(torch.int16)
-    new_state = DcBlockerState(
-        x_prev=(x[-1] * q14.Q14_ONE).to(torch.int32),
-        y_prev=torch.round(y[-1]).to(torch.int32),
-        acc=state.acc,
-    )
-    return new_state, out
+    st = torch.stack([x[:, -1] * q14.Q14_ONE, torch.round(y[:, -1])],
+                     dim=1).to(torch.int32)
+    return [DcBlockerState(x_prev=st[i, 0], y_prev=st[i, 1],
+                           acc=states[i].acc) for i in range(g)], out
 
 
 def dc_block_exact(state: torch.Tensor, block: torch.Tensor,

@@ -1,5 +1,7 @@
-"""FM quadrature discriminators (plain torch): the production tier's on
-channelized baseband, and the bit-exact tier's on Q.14 IQ.
+"""FM quadrature discriminators: the production tier's on channelized
+baseband (plain torch; K1 fuses it), and the bit-exact tier's on Q.14 IQ,
+which :func:`exact_fm` runs after K5 with the derotation before it as
+kernel K9 (``csrc/exact_fm.cu``) on the card.
 
 Port of ``tsl_sdr_tpu/ops/fm.py:66-142`` ``fm_from_baseband`` and
 ``:145-158`` ``fm_demod_np`` (:func:`fm_demod_exact`, see there). The
@@ -20,7 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tsl_sdr_tpu_torch.ops import q14
+from tsl_sdr_tpu_torch.kernels import build
+from tsl_sdr_tpu_torch.ops import atan2, q14
 from tsl_sdr_tpu_torch.ops.atan2 import fast_atan2
 
 PI_F32 = float(np.float32(np.pi))
@@ -112,3 +115,63 @@ def fm_demod_exact(ch: torch.Tensor, last: torch.Tensor):
         torch.float32)
     pcm = torch.trunc(scaled).to(torch.int16)
     return pcm, ch[..., -1, :].to(torch.int32)
+
+
+def exact_fm(a_re: torch.Tensor, a_im: torch.Tensor, seq: torch.Tensor,
+             last: torch.Tensor):
+    """The bit-exact tier's stage after K5 (kernel K9): K5's Q.14 sums
+    ``a_re``/``a_im`` [K, C] int16 derotated by the host rotator's values
+    ``seq`` [K, C, 2] int16 (the value before each output), rounded Q.28 ->
+    Q.14, then :func:`fm_demod_exact` from ``last`` [C, 2] int32. Returns
+    (pcm [C, K] int16, the channelized IQ [K, C, 2] int16, new last [C, 2]
+    int32). On a CUDA tensor it launches ``csrc/exact_fm.cu``; on a CPU
+    tensor it runs :func:`exact_fm_plain`."""
+    if a_re.device.type == "cpu":
+        return exact_fm_plain(a_re, a_im, seq, last)
+    if a_re.device.type != "cuda":
+        raise ValueError(f"exact_fm runs on cuda or cpu, not {a_re.device}")
+    k, c = a_re.shape
+    for t, dtype, shape, name in ((a_re, torch.int16, (k, c), "a_re"),
+                                  (a_im, torch.int16, (k, c), "a_im"),
+                                  (seq, torch.int16, (k, c, 2), "seq"),
+                                  (last, torch.int32, (c, 2), "last")):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype}{list(shape)}, got "
+                             f"{t.dtype}{list(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != a_re.device:
+            raise ValueError(f"{name} on {t.device}, a_re on {a_re.device}")
+    if k == 0:
+        raise ValueError("exact_fm needs at least one output")
+    dev = a_re.device
+    pcm = torch.empty((c, k), dtype=torch.int16, device=dev)
+    ch = torch.empty((k, c, 2), dtype=torch.int16, device=dev)
+    last2 = torch.empty((c, 2), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = build.load().tsl_exact_fm(
+        a_re.data_ptr(), a_im.data_ptr(), seq.data_ptr(), last.data_ptr(),
+        atan2._table(dev).data_ptr(), pcm.data_ptr(), ch.data_ptr(),
+        last2.data_ptr(), k, c, stream)
+    build.check(err, "tsl_exact_fm")
+    exact_fm.launches += 1
+    return pcm, ch, last2
+
+
+exact_fm.launches = 0
+
+
+def exact_fm_plain(a_re: torch.Tensor, a_im: torch.Tensor, seq: torch.Tensor,
+                   last: torch.Tensor):
+    """Plain torch version of :func:`exact_fm`, on any device: the
+    products in int64 narrowed to int32, :func:`q14.round_q28_q14`, then
+    :func:`fm_demod_exact`."""
+    s = seq.to(torch.int64)
+    are = a_re.to(torch.int64)
+    aim = a_im.to(torch.int64)
+    d_re = (are * s[..., 0] - aim * s[..., 1]).to(torch.int32)
+    d_im = (are * s[..., 1] + aim * s[..., 0]).to(torch.int32)
+    ch = torch.stack([q14.round_q28_q14(d_re), q14.round_q28_q14(d_im)],
+                     dim=-1)                                    # [K, C, 2]
+    pcm, last2 = fm_demod_exact(ch.transpose(0, 1), last)
+    return pcm, ch, last2
