@@ -179,10 +179,13 @@ row), and the block's last stages (K7, K8, K9):
    row), at phase 15's AIS shape, at K % 8 != 0, K < TAIL and 130 rows
    (two launches), with sync words planted at the block start, across the
    tail boundary and in a POCSAG run ending at the last old sample, and
-   float rows holding values in (-1, 1), each twice; (b) K8 (the fast DC
+   float rows holding values in (-1, 1), each twice, and K7's device and
+   call times (with its tile and CTA count) at the pager's groups and the
+   AIS shape; (b) K8 (the fast DC
    blocker, ``csrc/dc_fast.cu``) against its plain version over 1,500,000
    samples in blocks of 54,400, states carried, at poles 0.9999 and 0.5 on
-   1, 6 and 65 rows: within 1 LSB, the count of differing samples printed;
+   1, 6 and 65 rows: within 1 LSB, the count of differing samples printed,
+   and K8's device and call times at 1 and 65 rows of 54,400 samples;
    (c) K9 (the exact tier's derotation and LUT discriminator,
    ``csrc/exact_fm.cu``) against its plain version, bit for bit, on K5's
    sums at the exact pager block and at ``multifm_rtlsdr_8ch``'s block and
@@ -3572,11 +3575,11 @@ def gate_rows(case, device, seed: int):
 
 def gate_ops(mode: str, g: int, k: int) -> int:
     """The integer operations the gate needs: each tested position's
-    register of each spec updated in place (shift, or, mask), compared
-    (xor, popcount, compare) and paired (and, or), and a pack step a
-    bit."""
+    register of each spec shifted on by one bit (shift, or), compared
+    (xor, popcount, compare), and the sign test and pack of each sample
+    (two); the pair tests are word ANDs, 1/32 of a position's."""
     ext = {"pocsag": [19, 9, 5], "ais": [4], "flex": [0]}[mode]
-    return g * (sum(8 * (k + e) for e in ext) + 2 * k)
+    return g * (sum(5 * (k + e) for e in ext) + 2 * k)
 
 
 def check_gate(device) -> dict:
@@ -3588,10 +3591,12 @@ def check_gate(device) -> dict:
     shape."""
     import torch
 
+    from tsl_sdr_tpu_torch.kernels import build
     from tsl_sdr_tpu_torch.ops import gate
     from tsl_sdr_tpu_torch.testing import stage_inputs as si
 
     res = {"times": {}}
+    sms = build.sm_count(0)
     for n, case in enumerate(si.GATE_CASES):
         name, mode, g, k, _, _, plants = case
         rows, tail = gate_rows(case, device, n)
@@ -3620,10 +3625,13 @@ def check_gate(device) -> dict:
             t["bound_ms"], t["bound_by"] = bound(
                 0, nbytes(*rows, tail, out_k, tail_k),
                 gate_ops(mode, g, k))
-            log(f"K7 {name}: kernel {t['ms']:.4f} ms (call "
-                f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f} ms, bound "
-                f"{t['bound_ms']:.5f} ms ({t['bound_by']}), "
-                f"{t['bound_ms'] / t['ms']:.1%} of it")
+            tile = gate.launch_tile(mode, g, k, sms)
+            log(f"K7 {name}: device {t['ms']:.4f} ms, call "
+                f"{t['call_ms']:.4f} ms (tile {tile}, "
+                f"{g * -(-k // tile)} CTAs); "
+                f"plain device {t['plain_ms']:.4f} ms, call "
+                f"{t['plain_call_ms']:.4f}; bound {t['bound_ms']:.5f} ms "
+                f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of it")
             res["times"][name] = t
     res["shapes"] = n + 1
     return res
@@ -3672,24 +3680,32 @@ def check_dc_fast(device) -> dict:
                 f"{block}: max |diff| {w} LSB, {d} of {g * n} samples "
                 f"differ; states: x_prev equal, y_prev within {ys}")
             worst, differ, total = max(worst, w), differ + d, total + g * n
-    row = torch.from_numpy(dc_rows(np.random.default_rng(0), 1, block)).to(
-        device)[0]
-    st = [dcb.init_dc_blocker_state(device=device)]
     p = dcb.make_pole_coeff(0.9999)
-    t = kernel_times(lambda: dcb.dc_block_fast_plain(st, [row], [p]),
-                     lambda: dcb.dc_block_fast(st, [row], [p]), 10, 50)
-    # 4 B in and 2 B out a sample; a subtraction and a multiply-add a
-    # sample of float64 (the recurrence's least work)
-    t_bytes = (block * 6 + 16) / HBM_BYTES
-    t_ops = 3 * block / F64_CORE_OPS
-    t["bound_ms"] = max(t_bytes, t_ops) * 1e3
-    t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"K8 the pager's DC-blocked FLEX row ({block} samples): kernel "
-        f"{t['ms']:.4f} ms (call {t['call_ms']:.4f}), plain "
-        f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-        f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of it")
+    times = {}
+    for g in (1, 65):
+        x = torch.from_numpy(dc_rows(np.random.default_rng(g), g,
+                                     block)).to(device)
+        rows = list(x)
+        st = [dcb.init_dc_blocker_state(device=device) for _ in range(g)]
+        t = kernel_times(lambda: dcb.dc_block_fast_plain(st, rows, [p] * g),
+                         lambda: dcb.dc_block_fast(st, rows, [p] * g),
+                         10, 50)
+        # 4 B in and 2 B out a sample; a subtraction and a multiply-add a
+        # sample of float64 (the recurrence's least work)
+        t_bytes = g * (block * 6 + 16) / HBM_BYTES
+        t_ops = 3 * g * block / F64_CORE_OPS
+        t["bound_ms"] = max(t_bytes, t_ops) * 1e3
+        t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"K8 {g} row(s) of the pager's DC-blocked FLEX length ({block} "
+            f"samples, {-(-g // 64)} launch(es), "
+            f"{g * -(-block // dcb.FAST_CHUNK)} CTAs): device "
+            f"{t['ms']:.4f} ms, call {t['call_ms']:.4f} ms; plain device "
+            f"{t['plain_ms']:.4f} ms, call {t['plain_call_ms']:.4f}; bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}), "
+            f"{t['bound_ms'] / t['ms']:.1%} of it")
+        times[g] = t
     return {"max_abs_err": worst, "differ": differ, "samples": total,
-            "times": t}
+            "times": times[1], "times_65": times[65]}
 
 
 def check_exact_fm(chain, pager_vals, device) -> dict:
@@ -4109,6 +4125,8 @@ def main() -> int:
         log(f"{card} | K7 {name}: {json.dumps(t)}")
     log(f"{card} | K8 over {last['dc']['samples']} samples: max |diff| "
         f"{last['dc']['max_abs_err']} LSB, {last['dc']['differ']} differ")
+    for name in ("times", "times_65"):
+        log(f"{card} | K8 {name}: {json.dumps(last['dc'][name])}")
     for kernel in ("k3", "k4"):
         for name, k in summary[kernel].items():
             log(f"{card} | {kernel.upper()} {name}: {json.dumps(k)}")

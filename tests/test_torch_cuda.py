@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from tsl_sdr_tpu_torch.kernels import build
 from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
 from tsl_sdr_tpu_torch.models import costas_channel
 from tsl_sdr_tpu_torch.ops import chain as k1
@@ -838,6 +839,172 @@ def test_dc_fast_kernel_matches_plain(cuda, g, pole):
     for a, b in zip(sk, sp):
         assert int(a.x_prev) == int(b.x_prev)
         assert abs(int(a.y_prev) - int(b.y_prev)) <= 1
+
+
+def _scratches(name):
+    return {key[2]: buf for key, buf in build._scratch.items()
+            if key[0] == name}
+
+
+def test_gate_scratch_needs_no_reset(cuda):
+    """K7 at the pager's POCSAG group three times in a row on one stream,
+    then three times on a second stream: each call one launch, equal to
+    the plain version byte for byte, its flag scratch all zero again
+    after it (no reset launch), and each stream with its own scratch."""
+    case = stage_inputs.GATE_CASES[0]
+    _, mode, g, k, types, _, plants = case
+    rows, tail = stage_inputs.gate_inputs(mode, g, k, types, plants, 2)
+    mat = torch.from_numpy(np.stack(rows, axis=1)).to(cuda)
+    trows = [mat[:, r] for r in range(g)]
+    tail = torch.from_numpy(tail).to(cuda)
+    want = gate.egress_gate_plain(mode, trows, tail)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    seen = []
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            for _ in range(3):
+                before = gate.egress_gate.launches
+                got = gate.egress_gate(mode, trows, tail)
+                assert gate.egress_gate.launches == before + 1
+                stream.synchronize()
+                assert torch.equal(got[0], want[0])
+                assert torch.equal(got[1], want[1])
+                buf = _scratches("egress_gate")[stream.cuda_stream]
+                assert not buf.any()
+        seen.append(stream.cuda_stream)
+    assert set(seen) <= set(_scratches("egress_gate")) and seen[0] != seen[1]
+    assert want[0][:, 0].any()
+
+
+def test_dc_fast_scratch_needs_no_reset(cuda):
+    """K8 over 300,000 samples (147 chunks, five look-back windows) on two
+    rows, three times in a row on one stream, then three times on a
+    second stream while the first runs it again: each call one launch and
+    within 1 LSB of the plain version (the same output every time: a
+    chunk's carry does not depend on the order CTAs ran in), the ticket
+    back at 0 after each (no reset launch), each stream with its own
+    scratch."""
+    x = torch.from_numpy(stage_inputs.dc_rows(np.random.default_rng(8), 2,
+                                              300_000)).to(cuda)
+    rows = [x[0], x[1]]
+    ps = [dc_blocker.make_pole_coeff(0.9999), dc_blocker.make_pole_coeff(0.5)]
+    sts = [dc_blocker.init_dc_blocker_state(device=cuda) for _ in ps]
+    _, want = dc_blocker.dc_block_fast_plain(sts, rows, ps)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            for _ in range(3):
+                before = dc_blocker.dc_block_fast.launches
+                outs.append(dc_blocker.dc_block_fast(sts, rows, ps)[1])
+                assert dc_blocker.dc_block_fast.launches == before + 1
+        if stream is side:
+            # the first stream again, at the same time as the second
+            outs.append(dc_blocker.dc_block_fast(sts, rows, ps)[1])
+    torch.cuda.synchronize()
+    for out in outs:
+        assert (out.int() - want.int()).abs().max() <= 1
+        assert torch.equal(out, outs[0])
+    bufs = _scratches("dc_block_fast")
+    assert {torch.cuda.current_stream().cuda_stream, side.cuda_stream} <= \
+        set(bufs)
+    for buf in bufs.values():   # the ticket, below the launch epoch
+        assert int(buf[:8].view(torch.int64)) & 0xFFFFFF == 0
+
+
+def _gate_graph_case(cuda, seed):
+    case = stage_inputs.GATE_CASES[0]
+    _, mode, g, k, types, _, plants = case
+    plants = plants[:seed % len(plants) + 1]
+    rows, tail = stage_inputs.gate_inputs(mode, g, k, types, plants, seed)
+    return (torch.from_numpy(np.stack(rows, axis=1)).to(cuda),
+            torch.from_numpy(tail).to(cuda))
+
+
+@pytest.mark.parametrize("kernel", ["dc_fast", "gate"])
+def test_scratch_survives_graph_replay(cuda, kernel):
+    """K8 (300,000 samples on two rows, 147 chunks) and K7 (the pager's
+    POCSAG group) captured once in a CUDA graph and replayed three times,
+    new input copied into the captured rows before each replay: every
+    replay equals the plain version on its own input. A replay passes the
+    launch's arguments as captured, so K8's look-back tags must come from
+    an epoch on the device and K7's flag word must be left zero."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    if kernel == "dc_fast":
+        def data(seed):
+            return torch.from_numpy(stage_inputs.dc_rows(
+                np.random.default_rng(seed), 2, 300_000)).to(cuda)
+        x = data(20)
+        ps = [dc_blocker.make_pole_coeff(0.9999),
+              dc_blocker.make_pole_coeff(0.5)]
+        sts = [dc_blocker.init_dc_blocker_state(device=cuda) for _ in ps]
+
+        def run():
+            return dc_blocker.dc_block_fast(sts, [x[0], x[1]], ps)[1]
+
+        def plain():
+            return dc_blocker.dc_block_fast_plain(sts, [x[0], x[1]], ps)[1]
+    else:
+        mat, tail = _gate_graph_case(cuda, 20)
+        mode = stage_inputs.GATE_CASES[0][1]
+
+        def data(seed):
+            return _gate_graph_case(cuda, seed)
+
+        def run():
+            return gate.egress_gate(mode, list(mat.unbind(1)), tail)
+
+        def plain():
+            return gate.egress_gate_plain(mode, list(mat.unbind(1)), tail)
+    with torch.cuda.stream(side):
+        run()   # the scratch is made outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = run()
+    for seed in (21, 22, 23):
+        if kernel == "dc_fast":
+            x.copy_(data(seed))
+        else:
+            m2, t2 = data(seed)
+            mat.copy_(m2)
+            tail.copy_(t2)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = plain()
+        if kernel == "dc_fast":
+            assert (got.int() - want.int()).abs().max() <= 1
+        else:
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+
+
+def test_dc_fast_refuses_short_scratch(cuda):
+    """The C entry point checks the scratch against the size it exports
+    (tsl_dc_block_fast_scratch): a byte short is cudaErrorInvalidValue,
+    before any launch."""
+    import array
+
+    x = torch.zeros(54_400, dtype=torch.int16, device=cuda)
+    st = dc_blocker.init_dc_blocker_state(device=cuda)
+    k, table = build.row_table([x], x.get_device(), "test")
+    ptrs = array.array("q", (st.x_prev.data_ptr(), st.y_prev.data_ptr()))
+    q = array.array("d", (0.9999,))
+    out = torch.empty((1, k), dtype=torch.int16, device=cuda)
+    st_out = torch.empty((1, 2), dtype=torch.int32, device=cuda)
+    lib = build.load()
+    nbytes = lib.tsl_dc_block_fast_scratch(k)
+    scratch = torch.zeros(nbytes, dtype=torch.uint8, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (table.buffer_info()[0], ptrs.buffer_info()[0],
+            q.buffer_info()[0], 1, k, out.data_ptr(), st_out.data_ptr(),
+            scratch.data_ptr())
+    assert lib.tsl_dc_block_fast(*args, nbytes - 1, stream) == 1
+    assert lib.tsl_dc_block_fast(*args, nbytes, stream) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("name", stage_inputs.K9_CASES)

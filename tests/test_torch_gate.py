@@ -4,9 +4,11 @@ gate (kernel K7's plain version), the fast DC blocker over a block's rows
 the pager pipeline through them.
 
 Each kernel's arithmetic is also emulated here in numpy, CTA by CTA and
-thread by thread as its CUDA source walks it (tiles, windows, the ticket
-fold, the chunked scan), and held to the plain version, so that what the
-card alone can run has its indexing checked where the tests run.
+thread by thread as its CUDA source walks it (K7's tiles, ballot words,
+residue-class register runs, match words and flag fold; K8's chunks and
+look-back in a shuffled CTA order), and held to the plain version, so
+that what the card alone can run has its indexing checked where the
+tests run.
 
 Tolerances: the gate EXACT (flags, packed bytes, pcm and tails, byte for
 byte); the DC blocker within 2 PCM LSB of JAX's float32 associative scan
@@ -16,6 +18,8 @@ one float32 rounding a step in the same order).
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -98,14 +102,10 @@ def test_gate_mixed_row_types_match_jax():
     np.testing.assert_array_equal(new_tail.numpy(), ref_tail)
 
 
-# gate.cu's constants
-TILE, EARLY = 2048, 4
-LOOK = {"pocsag": 18 + 31 * 75, "ais": 4 + 31 * 5 + 5, "flex": 31 * 10}
-SPECS = {"pocsag": [(75, sp.POCSAG_SYNC, 4, -19, 18, 18),
-                    (32, sp.POCSAG_SYNC, 4, -9, 8, 8),
-                    (16, sp.POCSAG_SYNC, 4, -5, 4, 4)],
-         "ais": [(5, sp.AIS_PREAMBLE, 2, -4, 1, 4)],
-         "flex": [(10, sp.FLEX_BS1, 0, 0, 0, 0)]}
+# gate.cu's constants, through the wrapper's one copy of them
+EARLY, LOOK, SPECS = gate.EARLY, gate.LOOK, gate.SPECS
+M32 = 0xFFFFFFFF
+_REV8 = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)], np.int64)
 
 
 def _to_i16(x):
@@ -113,14 +113,70 @@ def _to_i16(x):
                     ).astype(np.int64)
 
 
-def _emulate_gate(mode, rows, tail):
-    """gate.cu in numpy, CTA by CTA: each tile's window of the plane, its
-    registers, pairs and packed bytes, the tail CTA, and the flag folded
-    by the last CTA to take a ticket (here, the tiles in a shuffled
-    order)."""
+def _ballot(bits):
+    """__ballot_sync over 32 lanes: bit l of the word is lane l's."""
+    return int((np.asarray(bits, np.int64) << np.arange(32)).sum())
+
+
+def _funnel_l(lo, hi, s):
+    """__funnelshift_l(lo, hi, s) for 0 < s < 32."""
+    return ((hi << s) | (lo >> (32 - s))) & M32
+
+
+def _packed_bytes(word):
+    """__byte_perm(__brev(word), 0, 0x0123): __brev, then the bytes in
+    reverse order; byte e holds positions 8e..8e+7, the first at bit 7."""
+    rev = sum(int(_REV8[(word >> (8 * e)) & 0xFF]) << (24 - 8 * e)
+              for e in range(4))
+    return sum(((rev >> (24 - 8 * e)) & 0xFF) << (8 * e) for e in range(4))
+
+
+def _popcount(v):
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) >> 24) & 0xFF
+
+
+def _walk(src, p0, np_, spec, m, run):
+    """One spec's register runs over the window's bit words ``src``
+    (positions relative to b0): items (class r, run u) of ``run``
+    positions, each a 31-bit warm-up and then reg = (reg << 1) | bit a
+    step, a match setting its bit in ``m``; all items side by side, step
+    by step."""
+    spb, word, ham = spec[:3]
+    runs = -(-(-(-np_ // spb)) // run)
+    it = np.arange(spb * runs)
+    r, u = it % spb, it // spb
+    jr = (np_ - r + spb - 1) // spb
+    ja = u * run
+    jb = np.minimum(jr, ja + run)
+    reg = np.zeros(len(it), np.int64)
+    for k in range(31 + run):
+        j = ja - 31 + k
+        bi = p0 + r + spb * j
+        live = j < jb
+        assert (bi[live] >= 0).all() and (bi[live] < 32 * len(src)).all()
+        bi = np.where(live, bi, 0)
+        bit = (src[bi >> 5] >> (bi & 31)) & 1
+        reg = ((reg << 1) | bit) & M32
+        if k >= 31:
+            hit = live & (_popcount(reg ^ word) <= ham)
+            for b in bi[hit]:
+                m[b >> 5] |= 1 << (b & 31)
+
+
+def _emulate_gate(mode, rows, tail, tile, run, vec):
+    """gate.cu in numpy, CTA by CTA and warp by warp: each tile's window
+    sign-sliced into ballot words (``vec``: four samples a lane, a word
+    ORed from eight lanes' nibbles), AIS's NRZI words, the residue-class
+    register runs setting the m words, the pairs as ANDs of shifted m
+    words, the packed bytes from the window's words, the tail CTA, and
+    the flag folded by the last CTA to count itself done (here, the tiles in
+    a shuffled order)."""
     g, t = tail.shape
     k = len(rows[0])
-    n_tiles = -(-k // TILE)
+    n_tiles = -(-k // tile)
     is_flex = mode == "flex"
     tp = min(k, t)
     width = 1 + tp + k if is_flex else 1 + t // 8 + -(-k // 8)
@@ -137,74 +193,190 @@ def _emulate_gate(mode, rows, tail):
                             bit[np.clip(q - t, 0, k - 1)]).astype(np.int64)
 
         # the tail CTA
-        new_tail[r] = plane(k + np.arange(t))
+        for w in range(-(-t // 32)):
+            i = 32 * w + np.arange(32)
+            b = np.where(i < t, plane(k + np.minimum(i, t - 1)), 0)
+            new_tail[r, i[i < t]] = b[i < t]
+            if not is_flex:
+                word = _packed_bytes(_ballot(b))
+                for lane in range(4):
+                    if 4 * w + lane < t // 8:
+                        out[r, 1 + 4 * w + lane] = (word >> (8 * lane)) & 0xFF
         if is_flex:
             out[r, 1:1 + tp] = v[k - tp:]
-        else:
-            bits = plane(k + np.arange(t)).reshape(-1, 8)
-            out[r, 1:1 + t // 8] = (bits << np.arange(7, -1, -1)).sum(1)
-        acc, ticket = 0, 0
+        fold = 0
         for j in rng.permutation(n_tiles):
-            n0, n1 = j * TILE, min(k, (j + 1) * TILE)
+            n0, n1 = j * tile, min(k, (j + 1) * tile)
             qa = t + n0 - (EARLY if j == 0 else 0)
             qb = t + n1
-            w0 = max(0, qa - LOOK[mode])
-            win = plane(np.arange(w0, qb))
+            wq = (qa - LOOK[mode] - t) // 32          # floor division
+            b0 = t + 32 * wq
+            nw = -(-(qb - b0) // 32)
+            wt = max(0, min(nw, -wq))
+            win = np.zeros(nw + 4, np.int64)
+            for w in range(wt):
+                q = b0 + 32 * w + np.arange(32)
+                win[w] = _ballot(np.where(q >= 0,
+                                          tail[r, np.clip(q, 0, t - 1)], 0))
+            if vec:
+                for w in range(wt, nw, 4):
+                    n = 32 * (wq + w) + 4 * np.arange(32)[:, None] + \
+                        np.arange(4)[None, :]
+                    nib = (np.where(n < k, bit[np.minimum(n, k - 1)], 0)
+                           << np.arange(4)).sum(1)
+                    part = nib << (4 * (np.arange(32) & 7))
+                    for kk in range(4):
+                        win[w + kk] = int(np.bitwise_or.reduce(
+                            part[8 * kk:8 * kk + 8]))
+            else:
+                for w in range(wt, nw):
+                    n = 32 * (wq + w) + np.arange(32)
+                    win[w] = _ballot(np.where(n < k,
+                                              bit[np.minimum(n, k - 1)], 0))
             src = win
             if mode == "ais":
-                i = np.arange(len(win))
-                src = np.where((w0 + i < 5) | (i < 5), 0,
-                               1 - (win ^ np.roll(win, 5)))
+                src = np.zeros_like(win)
+                for w in range(nw):
+                    prev = win[w - 1] if w else 0
+                    x = ~(win[w] ^ _funnel_l(prev, win[w], 5)) & M32
+                    lo = b0 + 32 * w
+                    if lo < 5:
+                        x = 0 if lo <= -27 else x & (M32 << (5 - lo)) & M32
+                    src[w] = x
             hit = False
-            for spb, word, ham, mlo_off, dmin, dmax in SPECS[mode]:
-                mlo = t + mlo_off
-                p0 = max(mlo, qa - dmax)
-                p = np.arange(p0, qb)
-                assert p0 - 31 * spb - w0 >= 0 and p0 - dmax >= w0 or w0 == 0
-                reg = np.zeros(len(p), np.int64)
-                for b in range(32):
-                    reg |= src[p - b * spb - w0] << b
-                x = reg ^ word
-                pop = np.array([bin(int(z)).count("1") for z in x])
-                m = pop <= ham
-                for q in range(max(qa, mlo + dmin), qb):
-                    i = q - p0
+            wa, wb = (qa - b0) // 32, (qb - 1 - b0) // 32
+            p0s = [max(t + sp[3], qa - sp[5]) for sp in SPECS[mode]]
+            for spec, p0 in zip(SPECS[mode], p0s):
+                spb, _, _, mlo_off, dmin, dmax = spec
+                m = np.zeros(nw + 4, np.int64)
+                _walk(src, p0 - b0, qb - p0, spec, m, run)
+                # the runs set exactly the matches of the registers read
+                # whole, 32 bits at stride spb, at every position
+                p = np.arange(p0, qb) - b0
+                reg = sum(((src[(p - b * spb) >> 5] >> ((p - b * spb) & 31))
+                           & 1) << b for b in range(32))
+                want = np.zeros(32 * len(m), np.int64)
+                want[p] = _popcount(reg ^ spec[1]) <= spec[2]
+                np.testing.assert_array_equal(
+                    (m[:, None] >> np.arange(32)) & 1, want.reshape(-1, 32))
+                for w in range(wa, wb + 1):
+                    cur, prev = int(m[w]), int(m[w - 1])
                     if dmax == 0:
-                        hit |= bool(m[i])
+                        hit |= cur != 0
                     for d in range(max(dmin, 1), dmax + 1):
-                        if q - d >= mlo:
-                            assert i - d >= 0
-                            hit |= bool(m[i] & m[i - d])
+                        hit |= (cur & _funnel_l(prev, cur, d)) != 0
             if is_flex:
                 out[r, 1 + tp + n0:1 + tp + n1] = v[n0:n1]
             else:
-                for n in range(n0, n1, 8):
-                    byte = 0
-                    for i in range(8):
-                        if n + i < k:
-                            byte |= int(win[t + n + i - w0]) << (7 - i)
-                    out[r, 1 + t // 8 + n // 8] = byte
-            acc |= hit
-            ticket += 1
-            if ticket == n_tiles:
-                out[r, 0] = acc
+                wo = (t + n0 - b0) // 32
+                for i in range(-(-(n1 - n0) // 32)):
+                    word = _packed_bytes(int(win[wo + i]))
+                    b = n0 // 8 + 4 * i
+                    for e in range(4):
+                        if b + e < -(-k // 8):
+                            out[r, 1 + t // 8 + b + e] = (word >> (8 * e)) \
+                                & 0xFF
+            # one atomic add of (1 | hit << 32); the CTA that saw
+            # n_tiles - 1 tiles done writes the flag and zeroes the word
+            old, fold = fold, fold + (1 | int(hit) << 32)
+            if old & M32 == n_tiles - 1:
+                out[r, 0] = (old >> 32) != 0 or hit
+                fold = 0
+        assert fold == 0
     return out, new_tail
 
 
-@pytest.mark.parametrize("case", si.GATE_CASES, ids=lambda c: c[0])
-def test_gate_kernel_emulation_matches_plain(case):
-    _, mode, g, k, types, _, plants = case
-    # cut to 2 rows and 9,000 samples (five tiles); a word planted near
-    # the block's end stays as near the cut block's end
-    g, cut = min(g, 2), min(k, 9_000)
-    plants = [(r, q - (k - cut) if q >= si.TAILS[mode] + cut - 17 else q)
-              for r, q in plants if r < g]
-    rows, tail = si.gate_inputs(mode, g, cut, types, plants, 4)
-    got, got_tail = _emulate_gate(mode, rows, tail)
+def _check_emulation(mode, g, k, types, layout, plants, tile, seed,
+                     run=None):
+    rows, tail = si.gate_inputs(mode, g, k, types, plants, seed)
+    got, got_tail = _emulate_gate(mode, rows, tail, tile,
+                                  run or gate.launch_run(mode, tile),
+                                  vec=layout == "rows")
     out, new_tail = gate.egress_gate_plain(
         mode, [torch.from_numpy(r) for r in rows], torch.from_numpy(tail))
     np.testing.assert_array_equal(got, out.numpy())
     np.testing.assert_array_equal(got_tail, new_tail.numpy())
+    return out
+
+
+@pytest.mark.parametrize("case", si.GATE_CASES, ids=lambda c: c[0])
+def test_gate_kernel_emulation_matches_plain(case):
+    """Each case at the tile the wrapper picks for its full shape on an
+    H100 (132 SMs), cut to 2 rows and 9,000 samples (several tiles); a
+    word planted near the block's end stays as near the cut block's
+    end."""
+    _, mode, g, k, types, layout, plants = case
+    tile = gate.launch_tile(mode, g, k, 132)
+    g, cut = min(g, 2), min(k, 9_000)
+    plants = [(r, q - (k - cut) if q >= si.TAILS[mode] + cut - 17 else q)
+              for r, q in plants if r < g]
+    _check_emulation(mode, g, cut, types, layout, plants, tile, 4)
+
+
+# (mode, tile, layout, plant offset from a tile boundary in F, register
+# run or the wrapper's): a POCSAG run, a FLEX register and an AIS pair that
+# straddle two tiles; runs of 8 take the threads several passes
+STRADDLE = [("pocsag", 2048, "columns", -8, 8),
+            ("pocsag", 4096, "rows", -3, None),
+            ("pocsag", 8192, "rows", 1, 128),
+            ("ais", 1024, "rows", -1, None), ("ais", 4096, "columns", 0, 8),
+            ("flex", 1024, "rows", 5, None),
+            ("flex", 8192, "columns", 200, 64)]
+
+
+@pytest.mark.parametrize("mode,tile,layout,off,run", STRADDLE)
+def test_gate_emulation_across_tiles(mode, tile, layout, off, run):
+    """Words planted so that a register, a POCSAG run's pairs or an AIS
+    pair cross the boundary between tiles 1 and 2: the emulation equals
+    the plain version and the planted row flags."""
+    t = si.TAILS[mode]
+    q = t + 2 * tile + off
+    out = _check_emulation(mode, 2, 3 * tile - 100, "float32", layout,
+                           [(0, q)], tile, 6, run)
+    assert out[0, 0] == 1 and out[1, 0] == 0
+
+
+def test_launch_shapes_on_an_h100():
+    """The tiles, runs and CTA counts the docstrings give at the pager's
+    shapes on 132 SMs."""
+    for mode, g, k, tile, run in (("pocsag", 6, 130_560, 2048, 32),
+                                  ("flex", 2, 54_400, 1024, 16),
+                                  ("ais", 1, 163_200, 1024, 16),
+                                  ("pocsag", 130, 4_100, 2048, 32),
+                                  ("pocsag", 300, 130_560, 8192, 128),
+                                  ("pocsag", 2, 1_003, 2048, 32)):
+        assert gate.launch_tile(mode, g, k, 132) == tile
+        assert gate.launch_run(mode, tile) == run
+    assert 6 * -(-130_560 // 2048) == 384
+
+
+def _cu_constants(name):
+    """The ``constexpr int`` constants of ``csrc/<name>``, evaluated."""
+    src = (Path(gate.__file__).parents[1] / "csrc" / name).read_text()
+    env = {}
+    for key, expr in re.findall(r"constexpr int (\w+) =\s*([^;]+);", src):
+        env[key] = eval(expr.replace("/", "//"), {}, dict(env))
+    return src, env
+
+
+def test_wrapper_geometry_matches_kernel_sources():
+    """The Python copies of the kernels' geometry (``ops/gate.py``'s
+    tiles, threads, rows, look-back and register specs, which pick K7's
+    tile and run and drive the emulation; ``ops/dc_blocker.py``'s rows
+    and chunk) equal the constants of ``gate.cu`` and ``dc_fast.cu``."""
+    src, c = _cu_constants("gate.cu")
+    assert (c["kThreads"], c["kMinTile"], c["kMaxTile"], c["kRows"],
+            c["kEarly"]) == (gate.THREADS, gate.TILES[0], gate.TILES[-1],
+                             gate.MAX_ROWS, gate.EARLY)
+    assert [c["kLookPocsag"], c["kLookAis"], c["kLookFlex"]] == \
+        [gate.LOOK[m] for m in ("pocsag", "ais", "flex")]
+    body = re.search(r"kSpecs\[\d+\] = \{(.*?)\n\};", src, re.S).group(1)
+    specs = [tuple(int(v.rstrip("u"), 0) for v in row.split(","))
+             for row in re.findall(r"\{([^{}]+)\}", body)]
+    assert specs == [tuple(x) for m in ("pocsag", "ais", "flex")
+                     for x in gate.SPECS[m]]
+    _, c = _cu_constants("dc_fast.cu")
+    assert (c["kRows"], c["kChunk"]) == (dcb._FAST_ROWS, dcb.FAST_CHUNK)
 
 
 def test_gate_wrapper_checks():
@@ -252,79 +424,145 @@ def test_dc_fast_rows_match_jax_and_single_row():
             assert abs(int(many[r].y_prev) - int(one[r].y_prev)) <= 1
 
 
-def _emulate_dc_fast(x, x_prev, y_prev, q, threads=1024, per=16):
-    """dc_fast.cu in numpy for one row: segments of ``threads * per``
-    samples, each thread a chunk of ``per`` run from 0, the maps scanned as
-    the lanes and warps do (a Hillis-Steele scan in the lanes, then over
-    the warps), each chunk run again from its carry, x and y carried to
-    the next segment."""
-    k = len(x)
-    xi = _to_i16(x).astype(np.float64)
-    seg = threads * per
+def _scan(a, e):
+    """Inclusive Hillis-Steele scan of affine maps y -> a*y + e along the
+    last axis (the lanes' __shfl_up scan), the first map applied first."""
+    a, e = a.copy(), e.copy()
+    off = 1
+    while off < a.shape[-1]:
+        pa = np.concatenate([np.ones_like(a[..., :off]), a[..., :-off]],
+                            axis=-1)
+        pe = np.concatenate([np.zeros_like(e[..., :off]), e[..., :-off]],
+                            axis=-1)
+        a, e = a * pa, a * pe + e
+        off *= 2
+    return a, e
 
-    def scan(a, e):
-        a, e = a.copy(), e.copy()
-        off = 1
-        while off < a.shape[-1]:
-            pa = np.concatenate([np.ones_like(a[..., :off]), a[..., :-off]],
-                                axis=-1)
-            pe = np.concatenate([np.zeros_like(e[..., :off]),
-                                 e[..., :-off]], axis=-1)
-            a, e = a * pa, a * pe + e
-            off *= 2
-        return a, e
 
-    out = np.empty(k, np.int16)
-    cx, cy = x_prev / 16384.0, float(y_prev)
-    for s0 in range(0, k, seg):
-        xs = xi[s0:s0 + seg]
-        sn = len(xs)
-        lo = np.minimum(sn, np.arange(threads) * per)
-        hi = np.minimum(sn, lo + per)
-        x_in = [cx if lo[j] == 0 else xs[lo[j] - 1] for j in range(threads)]
-        a = np.ones(threads)
-        e = np.zeros(threads)
-        for j in range(threads):
-            xp = x_in[j]
-            for n in range(lo[j], hi[j]):
-                e[j] = q * e[j] + (xs[n] - xp)
-                a[j] *= q
-                xp = xs[n]
-        wa, we = scan(a.reshape(-1, 32), e.reshape(-1, 32))
-        ba, be = scan(wa[:, -1], we[:, -1])
+def _emulate_dc_fast(xs, x_prev, y_prev, qs, threads=256, per=8, group=32,
+                     seed=0):
+    """dc_fast.cu in numpy over rows of one length: a CTA a chunk of
+    ``threads * per`` samples (its id from a ticket: row id // chunks,
+    chunk id % chunks), each thread ``per`` samples run from 0, the maps
+    scanned as the lanes and warps do, the chunk's sum E published; the
+    y entering chunk c = group*m + o composed from the E of chunks
+    group*m .. c-1 (a lane each, a scan with identity lanes) applied to
+    the y entering chunk group*m (published by it; y_prev for m = 0), or
+    for o = 0 from the group before. The CTAs run in a shuffled order; a
+    CTA whose window is not yet published waits (goes to the back), as
+    the kernel's spin does. Then each thread reruns its samples."""
+    g, k = xs.shape
+    chunk = threads * per
+    nch = -(-k // chunk)
+    xi = _to_i16(xs).astype(np.float64)
+    out = np.empty((g, k), np.int16)
+    st = [None] * g
+    agg, base = {}, {}
+    a_full = [q ** chunk for q in qs]
+    pending = list(np.random.default_rng(seed).permutation(g * nch))
+    local = {}
+    while pending:
+        cta = pending.pop(0)
+        r, c = divmod(int(cta), nch)
+        q = qs[r]
+        c0 = c * chunk
+        if cta not in local:
+            x = xi[r, c0:c0 + chunk]
+            cn = len(x)
+            x_before = x_prev[r] / 16384.0 if c == 0 else xi[r, c0 - 1]
+            lo = np.minimum(cn, np.arange(threads) * per)
+            hi = np.minimum(cn, lo + per)
+            x_in = np.array([x_before if lo[j] == 0 else x[lo[j] - 1]
+                             for j in range(threads)])
+            a, e, xp = np.ones(threads), np.zeros(threads), x_in.copy()
+            for i in range(per):
+                live = lo + i < hi
+                xv = x[np.minimum(lo + i, cn - 1)]
+                e = np.where(live, q * e + (xv - xp), e)
+                a = np.where(live, a * q, a)
+                xp = np.where(live, xv, xp)
+            wa, we = _scan(a.reshape(-1, 32), e.reshape(-1, 32))
+            tot_a = np.ones(32)
+            tot_e = np.zeros(32)
+            tot_a[:threads // 32], tot_e[:threads // 32] = wa[:, -1], we[:, -1]
+            ba, be = _scan(tot_a, tot_e)
+            if c + 1 < nch:
+                agg[r, c] = be[threads // 32 - 1]
+            local[cta] = (x, cn, lo, hi, x_in, wa, we, ba, be)
+        x, cn, lo, hi, x_in, wa, we, ba, be = local[cta]
+        if c == 0:
+            y_in = float(y_prev[r])
+        else:
+            o = c % group
+            gb = c - o if o else c - group
+            n = o if o else group
+            need = [(r, gb + i) for i in range(n)]
+            if any(key not in agg for key in need) or \
+                    (gb and (r, gb // group) not in base):
+                pending.append(cta)
+                continue
+            la, le = np.ones(32), np.zeros(32)
+            la[:n] = a_full[r]
+            le[:n] = [agg[key] for key in need]
+            la, le = _scan(la, le)
+            yb = float(y_prev[r]) if gb == 0 else base[r, gb // group]
+            y_in = la[n - 1] * yb + le[n - 1]
+            if o == 0:
+                base[r, c // group] = y_in
         for j in range(threads):
             w, lane = divmod(j, 32)
             ea, ee = (ba[w - 1], be[w - 1]) if w else (1.0, 0.0)
             if lane:
                 ea, ee = (wa[w, lane - 1] * ea,
                           wa[w, lane - 1] * ee + we[w, lane - 1])
-            y = ea * cy + ee
+            y = ea * y_in + ee
             xp = x_in[j]
             for n in range(lo[j], hi[j]):
-                y = q * y + (xs[n] - xp)
-                xp = xs[n]
-                out[s0 + n] = np.clip(np.rint(y), -32768, 32767)
-            if hi[j] == sn and lo[j] < hi[j]:
-                last = (xp, y)
-        cx, cy = last
-    return out, (int(cx) * 16384, int(np.rint(cy)))
+                y = q * y + (x[n] - xp)
+                xp = x[n]
+                out[r, c0 + n] = np.clip(np.rint(y), -32768, 32767)
+            if c == nch - 1 and lo[j] < hi[j] == cn:
+                st[r] = (int(xp) * 16384, int(np.rint(y)))
+    return out, st
 
 
-@pytest.mark.parametrize("k,threads,per", [(54_400, 1024, 16), (1, 1024, 16),
-                                           (3_001, 64, 4)])
-def test_dc_fast_kernel_emulation_matches_plain(k, threads, per):
-    rng = np.random.default_rng(k)
-    x = si.dc_rows(rng, 1, k)[0]
-    p = dcb.make_pole_coeff(0.9999)
-    st = dcb.DcBlockerState(x_prev=torch.tensor(-41 << 14, dtype=torch.int32),
-                            y_prev=torch.tensor(123, dtype=torch.int32),
-                            acc=torch.tensor(0, dtype=torch.int32))
-    (st2,), out = dcb.dc_block_fast_plain([st], [torch.from_numpy(x)], [p])
-    got, (xp, yp) = _emulate_dc_fast(x, -41 << 14, 123, 1 - p / 16384,
-                                     threads, per)
-    diff = np.abs(got.astype(np.int32) - out[0].numpy())
+def _dc_fast_case(g, k, threads, per, seed):
+    rng = np.random.default_rng(seed)
+    x = si.dc_rows(rng, g, k)
+    ps = [dcb.make_pole_coeff(0.5 if r % 2 else 0.9999) for r in range(g)]
+    x_prev = rng.integers(-3000, 3000, g) << 14
+    y_prev = rng.integers(-2000, 2000, g)
+    states = [dcb.DcBlockerState(x_prev=torch.tensor(xp, dtype=torch.int32),
+                                 y_prev=torch.tensor(yp, dtype=torch.int32),
+                                 acc=torch.tensor(0, dtype=torch.int32))
+              for xp, yp in zip(x_prev, y_prev)]
+    st2, out = dcb.dc_block_fast_plain(states, [torch.from_numpy(r)
+                                                for r in x], ps)
+    got, st = _emulate_dc_fast(x, x_prev, y_prev,
+                               [1 - p / 16384 for p in ps], threads, per,
+                               seed=seed)
+    diff = np.abs(got.astype(np.int32) - out.numpy())
     assert diff.max() <= 1 and np.count_nonzero(diff) <= 2
-    assert xp == int(st2.x_prev) and abs(yp - int(st2.y_prev)) <= 1
+    for (xp, yp), s in zip(st, st2):
+        assert xp == int(s.x_prev) and abs(yp - int(s.y_prev)) <= 1
+
+
+@pytest.mark.parametrize("k,threads,per", [(54_400, 256, 8), (1, 256, 8),
+                                           (3_001, 64, 4),
+                                           (70_001, 64, 4)])
+def test_dc_fast_kernel_emulation_matches_plain(k, threads, per):
+    """One row: the pager's block (27 chunks), a single sample, a ragged
+    row at a small tiling (12 chunks), and 274 chunks (nine windows of
+    32, each entered from the y its first chunk published)."""
+    _dc_fast_case(1, k, threads, per, k)
+
+
+@pytest.mark.parametrize("g,k", [(1, 1_000), (65, 2_500)])
+def test_dc_fast_emulation_rows(g, k):
+    """A row shorter than one chunk, and 65 rows (the kernel's two
+    launches; each row its own chunks), each row with its own pole and
+    state."""
+    _dc_fast_case(g, k, 256, 8, g)
 
 
 def test_dc_fast_wrapper_checks():

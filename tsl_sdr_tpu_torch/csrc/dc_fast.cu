@@ -12,30 +12,48 @@
 // some 57 torch ops a row. float64 throughout: in float32 the recurrence
 // at pole 0.9999 drifts by whole LSB over a 54,400-sample block.
 //
-// What bounds it on the H100: latency. The bytes (4 B in, 2 B out a
-// sample: 0.3 MB at the pager's one FLEX channel) take 0.1 us; the
-// recurrence is a chain of dependent float64 FMAs, which a chunked scan
-// cuts to two chunks' worth a thread plus a log-depth scan.
+// What bounds it on the H100: bytes, 4 B in and 2 B out a sample (0.3 MB
+// at the pager's one FLEX channel, 0.1 us), far below a launch's fixed
+// cost. The recurrence is a chain of dependent float64 FMAs; a scan cuts
+// it to a few short chains and a log-depth composition of affine maps.
 //
-// How the design responds: a CTA a row, kThreads threads. The row goes
-// through in segments of kSeg samples, each loaded whole (coalesced, cast
-// to int16) into shared memory, where every thread owns kPer consecutive
-// samples (kept in registers after their first read; the shared layout
-// pads a word every 16 samples, so the threads' strided reads fall in
-// distinct banks): (1) every thread runs its chunk serially from y = 0,
-// keeping its end value e and q^len; (2) the CTA scans the affine maps
-// y -> q^len*y + e (warp shuffles, then across warps in shared memory)
-// for the value entering each chunk from the segment's carry; (3) every
-// thread reruns its chunk from that value and writes the rounded outputs
-// over its samples, and the CTA stores the segment (coalesced). The last
-// sample's x and y carry to the next segment. A first version that read
-// the row from device memory in each thread's chunk (54 samples a thread,
-// strided) took 0.068 ms a pager row on an H100, as long as the plain
-// version's matrix products; staging the segments took it to 0.032 (one
-// SM's float64 pipe, conversions included, now bounds it: a row runs on
-// one CTA). Only the sums' order differs from the plain
-// version's, so the two agree within 1 LSB (a sample differs only where y
-// lies within ~1e-11 of a half).
+// How the design responds: a row is spread over many CTAs, a chunk of
+// kChunk = 2,048 samples each, with a single-pass chained scan
+// (decoupled look-back). A CTA takes its (row, chunk) from a ticket, so
+// it waits only on CTAs that have started (no deadlock whatever order
+// the hardware runs CTAs in). Each thread owns kPer = 8 consecutive
+// samples, loaded straight into registers (16 or 32 bytes a thread, the
+// threads side by side, so a warp's loads are coalesced; the sample
+// before them comes from the thread before through shared memory):
+// (1) every thread runs its samples from y = 0, keeping the map
+// y -> a*y + e; (2) the CTA scans the maps (warp shuffles, then across
+// warps); the chunk's map is (q^2048, E), and q^2048 is the same for
+// every full chunk, so a chunk publishes only E (with a tag); (3) warp 0
+// finds the y entering the chunk: chunk c = 32 m + o composes the E of
+// chunks 32 m .. c-1 (one a lane, waiting on each tag; a fixed-order
+// shuffle scan) and applies them to the y entering chunk 32 m, which
+// chunk 32 m publishes (the row's y_prev for m = 0); chunk 32 m itself
+// composes the 32 chunks before it from the y entering chunk 32 (m - 1).
+// So a chunk's y never depends on which predecessors happened to be
+// done, and the output is the same on every run; (4) every thread reruns
+// its samples from its carry and stores its rounded outputs from
+// registers (16 bytes a thread). x[n-1] at a chunk's start is the previous input sample,
+// read from the row, so y is the only carried dependency. The chunk that
+// holds the row's last sample writes the new state.
+//
+// The look-back scratch (a 64-bit word, the launch's epoch above a
+// 24-bit ticket, then a tagged (E) slot a chunk and a tagged (y) slot a
+// group of 32 chunks; its size from tsl_dc_block_fast_scratch) lives for
+// each (device, stream). One atomic add gives a CTA its ticket and the
+// epoch; the CTA that takes the last ticket adds what carries the ticket
+// back to 0 and the epoch on by one. A launch tags its slots with its
+// epoch + 1, so slots left by an earlier launch never match (until the
+// 40-bit epoch wraps, after 2^40 launches on one stream). The epoch
+// lives on the device, so a launch replayed from a CUDA graph gets a new
+// one too. No memset launch: the wrapper zeroes the scratch once, when
+// it makes it. Only the sums' order differs from the plain version's, so
+// the two agree within 1 LSB (a sample differs only where y lies within
+// ~1e-11 of a half).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,21 +63,25 @@
 
 namespace {
 
-constexpr int kRows = 64;         // rows a launch (the table's size)
-constexpr int kThreads = 1024;
+constexpr int kRows = 64;          // rows a launch (the table's size)
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPer = 16;                  // samples a thread a segment
-constexpr int kSeg = kThreads * kPer;     // samples a segment
+constexpr int kPer = 8;                    // samples a thread (8 k)
+constexpr int kChunk = kThreads * kPer;    // samples a CTA
+constexpr int kGroup = 32;                 // chunks a look-back window
+constexpr int kTicketBits = 24;            // a launch's CTAs < 2^24
 
 struct DcStates {
   const int* x_prev[kRows];   // [] int32, Q.28
   const int* y_prev[kRows];   // [] int32
   double q[kRows];
+  double q_chunk[kRows];      // q^kChunk, a full chunk's decay
 };
 
-// sample n's place in the staged segment: a word of padding every 16
-// samples, so thread t's n = 16 t + i sits in bank (9 t + i / 2) % 32
-__device__ __forceinline__ int slot(int n) { return n + 2 * (n >> 4); }
+struct Slot {
+  unsigned long long tag;   // the launch's epoch + 1 once v is written
+  double v;
+};
 
 // (a1, e1) then (a2, e2): y -> a2*(a1*y + e1) + e2
 __device__ __forceinline__ void compose(double& a, double& e, double a2,
@@ -68,156 +90,291 @@ __device__ __forceinline__ void compose(double& a, double& e, double a2,
   a = a2 * a;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    dc_fast_kernel(const __grid_constant__ RowTable<kRows> rows,
-                   const __grid_constant__ DcStates st, long long k,
-                   int16_t* __restrict__ out, int* __restrict__ st_out) {
-  __shared__ int16_t xs[kSeg + kSeg / 8];
-  __shared__ double wa[kWarps], we[kWarps];
-  __shared__ double cx, cy;   // x and y before the segment
-  const int g = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const double q = st.q[g];
-  int16_t* o = out + (long long)g * k;
-  if (tid == 0) {
-    cx = (double)*st.x_prev[g] * (1.0 / 16384.0);
-    cy = (double)*st.y_prev[g];
+// inclusive scan of the lanes' maps, lane 0's applied first
+__device__ __forceinline__ void scan_lanes(double& a, double& e, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double pa = __shfl_up_sync(0xFFFFFFFFu, a, off);
+    const double pe = __shfl_up_sync(0xFFFFFFFFu, e, off);
+    if (lane >= off) {
+      double ca = pa, ce = pe;
+      compose(ca, ce, a, e);
+      a = ca;
+      e = ce;
+    }
   }
-  for (long long s0 = 0; s0 < k; s0 += kSeg) {
-    const int sn = (int)min((long long)kSeg, k - s0);
-    // all of a thread's loads in flight at once, then their casts
-    float v[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int i = tid + j * kThreads;
-      v[j] = i < sn ? row_value(rows, g, s0 + i) : 0.0f;
-    }
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int i = tid + j * kThreads;
-      if (i < sn) xs[slot(i)] = (int16_t)to_i16(v[j]);
-    }
-    __syncthreads();
-    const int lo = min(sn, tid * kPer);
-    const int cnt = min(sn - lo, kPer);
-    const double x_in = lo == 0 ? cx : (double)xs[slot(lo - 1)];
+}
 
-    // (1) the chunk from y = 0: its map y -> a*y + e
-    int xr[kPer];
-    double a = 1.0, e = 0.0, xp = x_in;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      if (i < cnt) {
-        xr[i] = xs[slot(lo + i)];
-        const double x = (double)xr[i];
-        e = fma(q, e, x - xp);
-        a *= q;
-        xp = x;
-      }
-    }
+__device__ __forceinline__ void publish(Slot* s, double v,
+                                        unsigned long long tag) {
+  s->v = v;
+  __threadfence();
+  atomicExch(&s->tag, tag);
+}
 
-    // (2) inclusive scan of the maps over the threads, in order
+__device__ __forceinline__ double await(const Slot* s,
+                                        unsigned long long tag) {
+  while (*reinterpret_cast<const volatile unsigned long long*>(&s->tag) !=
+         tag) {
+    __nanosleep(32);
+  }
+  __threadfence();
+  return *reinterpret_cast<const volatile double*>(&s->v);
+}
+
+// samples n .. n+kPer-1 of row g, cast to int16 values (the row has
+// stride 1 and n is a multiple of 8 from a 16-byte aligned start when
+// vec), eight at a time
+__device__ __forceinline__ void load_run(const RowTable<kRows>& rows, int g,
+                                         long long n, int cnt, bool vec,
+                                         int x[kPer]) {
+  if (vec && cnt == kPer) {
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const double pa = __shfl_up_sync(0xFFFFFFFFu, a, off);
-      const double pe = __shfl_up_sync(0xFFFFFFFFu, e, off);
-      if (lane >= off) {
-        double ca = pa, ce = pe;
-        compose(ca, ce, a, e);
-        a = ca;
-        e = ce;
-      }
-    }
-    if (lane == 31) {
-      wa[warp] = a;
-      we[warp] = e;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      double ba = wa[lane], be = we[lane];
+    for (int j = 0; j < kPer; j += 8) {
+      if (rows.f32[g]) {
+        const float4* p = reinterpret_cast<const float4*>(
+            reinterpret_cast<const float*>(rows.ptr[g]) + n + j);
+        const float4 f0 = __ldg(p), f1 = __ldg(p + 1);
+        const float f[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const double pa = __shfl_up_sync(0xFFFFFFFFu, ba, off);
-        const double pe = __shfl_up_sync(0xFFFFFFFFu, be, off);
-        if (lane >= off) {
-          double ca = pa, ce = pe;
-          compose(ca, ce, ba, be);
-          ba = ca;
-          be = ce;
+        for (int i = 0; i < 8; ++i) x[j + i] = to_i16(f[i]);
+      } else {
+        const int4 w = __ldg(reinterpret_cast<const int4*>(
+            reinterpret_cast<const int16_t*>(rows.ptr[g]) + n + j));
+        const int h[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[j + 2 * i] = (int16_t)(h[i] & 0xFFFF);
+          x[j + 2 * i + 1] = h[i] >> 16;
         }
       }
+    }
+  } else {
+    float f[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      f[i] = i < cnt ? row_value(rows, g, n + i) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) x[i] = to_i16(f[i]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    dc_fast_kernel(const __grid_constant__ RowTable<kRows> rows,
+                   const __grid_constant__ DcStates st, long long k, int nch,
+                   int16_t* __restrict__ out, int* __restrict__ st_out,
+                   unsigned long long* __restrict__ ticket,
+                   Slot* __restrict__ agg, Slot* __restrict__ base) {
+  __shared__ int xl[kThreads];   // each thread's last sample
+  __shared__ double wa[kWarps], we[kWarps];
+  __shared__ double s_x, s_y;    // x before the chunk, y entering it
+  __shared__ int s_id;
+  __shared__ unsigned long long s_tag;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    const unsigned long long w = atomicAdd(ticket, 1ull);
+    const unsigned id = (unsigned)(w & ((1ull << kTicketBits) - 1));
+    if (id == gridDim.x - 1) {   // every CTA has its ticket and epoch
+      atomicAdd(ticket, (1ull << kTicketBits) - gridDim.x);
+    }
+    s_id = (int)id;
+    s_tag = (w >> kTicketBits) + 1;
+  }
+  __syncthreads();
+  const unsigned long long tag = s_tag;
+  const int g = s_id / nch, c = s_id % nch;
+  const int ngroups = (nch + kGroup - 1) / kGroup;
+  const long long c0 = (long long)c * kChunk;
+  const int cn = (int)min((long long)kChunk, k - c0);
+  const double q = st.q[g];
+
+  // the thread's kPer samples, straight into registers (coalesced: the
+  // threads' runs of 16 or 32 bytes lie side by side)
+  const int lo = tid * kPer;
+  const int cnt = max(0, min(kPer, cn - lo));
+  const bool vec =
+      rows.stride[g] == 1 &&
+      (reinterpret_cast<uintptr_t>(rows.ptr[g]) & 15) == 0;
+  int xr[kPer];
+  load_run(rows, g, c0 + lo, cnt, vec, xr);
+  xl[tid] = xr[kPer - 1];
+  if (tid == 0) {
+    s_x = c == 0 ? (double)*st.x_prev[g] * (1.0 / 16384.0)
+                 : (double)to_i16(row_value(rows, g, c0 - 1));
+  }
+  __syncthreads();
+  // sample lo - 1 is the last of the thread before (a whole run of kPer
+  // wherever this thread has samples)
+  const double x_in = tid == 0 ? s_x : (double)xl[tid - 1];
+
+  // (1) the thread's samples from y = 0: its map y -> a*y + e
+  double a = 1.0, e = 0.0, xp = x_in;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    if (i < cnt) {
+      const double x = (double)xr[i];
+      e = fma(q, e, x - xp);
+      a *= q;
+      xp = x;
+    }
+  }
+
+  // (2) inclusive scan of the maps over the threads, in order
+  scan_lanes(a, e, lane);
+  if (lane == 31) {
+    wa[warp] = a;
+    we[warp] = e;
+  }
+  __syncthreads();
+
+  // (3) warp 0: the scan over the warps, the chunk's E published, then
+  // the y entering the chunk
+  if (warp == 0) {
+    double ba = lane < kWarps ? wa[lane] : 1.0;
+    double be = lane < kWarps ? we[lane] : 0.0;
+    scan_lanes(ba, be, lane);
+    if (lane < kWarps) {
       wa[lane] = ba;
       we[lane] = be;
     }
-    __syncthreads();
-    // the maps before this thread's chunk: the warps before, then the
-    // lanes before within the warp
-    double ea = 1.0, ee = 0.0;
-    if (warp > 0) {
-      ea = wa[warp - 1];
-      ee = we[warp - 1];
+    const double chunk_e = __shfl_sync(0xFFFFFFFFu, be, kWarps - 1);
+    if (lane == 0 && c + 1 < nch) {
+      publish(&agg[(long long)g * nch + c], chunk_e, tag);
     }
-    const double la = __shfl_up_sync(0xFFFFFFFFu, a, 1);
-    const double le = __shfl_up_sync(0xFFFFFFFFu, e, 1);
-    if (lane > 0) compose(ea, ee, la, le);
-    double y = fma(ea, cy, ee);
-    __syncthreads();   // every thread has read cx, cy and its x_in
+    double y_in;
+    if (c == 0) {
+      y_in = (double)*st.y_prev[g];
+    } else {
+      const int o = c % kGroup;
+      const int gb = o ? c - o : c - kGroup;   // the window's first chunk
+      const int n = o ? o : kGroup;
+      double la = 1.0, le = 0.0;
+      if (lane < n) {
+        la = st.q_chunk[g];
+        le = await(&agg[(long long)g * nch + gb + lane], tag);
+      }
+      scan_lanes(la, le, lane);
+      double yb = 0.0;
+      if (lane == 0) {
+        yb = gb == 0 ? (double)*st.y_prev[g]
+                     : await(&base[(long long)g * ngroups + gb / kGroup], tag);
+      }
+      yb = __shfl_sync(0xFFFFFFFFu, yb, 0);
+      la = __shfl_sync(0xFFFFFFFFu, la, n - 1);
+      le = __shfl_sync(0xFFFFFFFFu, le, n - 1);
+      y_in = fma(la, yb, le);
+      if (o == 0 && lane == 0) {
+        publish(&base[(long long)g * ngroups + c / kGroup], y_in, tag);
+      }
+    }
+    if (lane == 0) s_y = y_in;
+  }
+  __syncthreads();
 
-    // (3) the chunk again from its carry, the outputs over its samples
-    xp = x_in;
+  // the maps before this thread's samples: the warps before, then the
+  // lanes before within the warp
+  double ea = 1.0, ee = 0.0;
+  if (warp > 0) {
+    ea = wa[warp - 1];
+    ee = we[warp - 1];
+  }
+  const double la = __shfl_up_sync(0xFFFFFFFFu, a, 1);
+  const double le = __shfl_up_sync(0xFFFFFFFFu, e, 1);
+  if (lane > 0) compose(ea, ee, la, le);
+  double y = fma(ea, s_y, ee);
+
+  // (4) the samples again from their carry, the rounded outputs stored
+  // from registers (16 bytes a thread where the row's start allows)
+  int res[kPer];
+  xp = x_in;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    res[i] = 0;
+    if (i < cnt) {
+      const double x = (double)xr[i];
+      y = fma(q, y, x - xp);
+      xp = x;
+      // round half to even (saturating at the int32 range), then clamp
+      res[i] = min(max(__double2int_rn(y), -32768), 32767);
+    }
+  }
+  int16_t* o = out + (long long)g * k + c0 + lo;
+  if (cnt == kPer && (k & 7) == 0) {
+#pragma unroll
+    for (int j = 0; j < kPer; j += 8) {
+      int4 w;
+      w.x = (res[j] & 0xFFFF) | (res[j + 1] << 16);
+      w.y = (res[j + 2] & 0xFFFF) | (res[j + 3] << 16);
+      w.z = (res[j + 4] & 0xFFFF) | (res[j + 5] << 16);
+      w.w = (res[j + 6] & 0xFFFF) | (res[j + 7] << 16);
+      *reinterpret_cast<int4*>(o + j) = w;
+    }
+  } else {
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
-      if (i < cnt) {
-        const double x = (double)xr[i];
-        y = fma(q, y, x - xp);
-        xp = x;
-        // round half to even (saturating at the int32 range), then clamp
-        xs[slot(lo + i)] = (int16_t)min(max(__double2int_rn(y), -32768),
-                                        32767);
-      }
+      if (i < cnt) o[i] = (int16_t)res[i];
     }
-    if (cnt > 0 && lo + cnt == sn) {
-      cx = xp;
-      cy = y;
-      if (s0 + sn == k) {
-        st_out[2 * g] = (int)xp * 16384;
-        st_out[2 * g + 1] = __double2int_rn(y);
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < sn; i += kThreads) o[s0 + i] = xs[slot(i)];
-    __syncthreads();
   }
+  if (c == nch - 1 && cnt > 0 && lo + cnt == cn) {
+    st_out[2 * g] = (int)xp * 16384;
+    st_out[2 * g + 1] = __double2int_rn(y);
+  }
+}
+
+// the scratch's bytes: the ticket word (16 with its padding), then a slot
+// a chunk and a slot a look-back window of kRows rows
+long long scratch_bytes(long long k) {
+  const long long nch = (k + kChunk - 1) / kChunk;
+  return 16 + (long long)sizeof(Slot) * kRows * (nch + (nch + kGroup - 1) /
+                                                          kGroup);
 }
 
 }  // namespace
 
-// rows: n_rows pointers, strides (elements) and float32 flags (host
-// arrays) of [k] samples; x_prev, y_prev: n_rows device pointers to int32
-// scalars (host arrays); q: n_rows poles (host array); out [n_rows, k]
-// int16; st_out [n_rows, 2] int32 (x_prev, y_prev). Launches once a kRows
-// rows.
-extern "C" int tsl_dc_block_fast(const long long* ptrs,
-                                 const long long* strides, const int* f32,
-                                 const long long* x_prev,
-                                 const long long* y_prev, const double* q,
-                                 int n_rows, long long k, void* out,
-                                 void* st_out, void* stream) {
-  if (n_rows <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+// The bytes of look-back scratch tsl_dc_block_fast needs at k samples a
+// row (zeroed once by the caller, then kept for the stream).
+extern "C" long long tsl_dc_block_fast_scratch(long long k) {
+  return k > 0 ? scratch_bytes(k) : 0;
+}
+
+// rows: n_rows (row pointer, stride in elements, float32 flag) triples of
+// [k] samples (csrc/row_table.cuh); states: n_rows (x_prev, y_prev)
+// device pointers to int32 scalars; q: n_rows poles (host arrays); out
+// [n_rows, k] int16 (16-byte aligned); st_out [n_rows, 2] int32 (x_prev,
+// y_prev); scratch: scratch_bytes of look-back scratch, zero when first
+// used (cudaErrorInvalidValue if fewer); the stream. Launches once a
+// kRows rows.
+extern "C" int tsl_dc_block_fast(const long long* rows,
+                                 const long long* states, const double* q,
+                                 int n_rows, long long k, int16_t* out,
+                                 int* st_out, char* scratch,
+                                 long long scratch_len,
+                                 cudaStream_t stream) {
+  if (n_rows <= 0 || k <= 0 ||
+      kRows * ((k + kChunk - 1) / kChunk) >= (1LL << kTicketBits) ||
+      scratch_len < scratch_bytes(k)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int nch = (int)((k + kChunk - 1) / kChunk);
+  unsigned long long* ticket = (unsigned long long*)scratch;
+  Slot* agg = (Slot*)(scratch + 16);
+  Slot* base = agg + (size_t)kRows * nch;
   for (int r0 = 0; r0 < n_rows; r0 += kRows) {
     const int n = n_rows - r0 < kRows ? n_rows - r0 : kRows;
     RowTable<kRows> table;
-    fill_rows(table, ptrs + r0, strides + r0, f32 + r0, n);
+    fill_rows(table, rows + 3 * r0, n);
     DcStates st;
     for (int i = 0; i < n; ++i) {
-      st.x_prev[i] = (const int*)x_prev[r0 + i];
-      st.y_prev[i] = (const int*)y_prev[r0 + i];
+      st.x_prev[i] = (const int*)states[2 * (r0 + i)];
+      st.y_prev[i] = (const int*)states[2 * (r0 + i) + 1];
       st.q[i] = q[r0 + i];
+      st.q_chunk[i] = pow(q[r0 + i], (double)kChunk);
     }
-    dc_fast_kernel<<<n, kThreads, 0, (cudaStream_t)stream>>>(
-        table, st, k, (int16_t*)out + (size_t)r0 * k,
-        (int*)st_out + 2 * r0);
+    dc_fast_kernel<<<n * nch, kThreads, 0, stream>>>(
+        table, st, k, nch, out + (size_t)r0 * k, st_out + 2 * r0, ticket,
+        agg, base);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

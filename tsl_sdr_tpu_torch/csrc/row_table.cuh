@@ -3,8 +3,8 @@
 // a [K] tensor of its own (a view into K1's output, a resampler's output
 // or the DC blocker's), int16 or float32, at any element stride. Reading
 // them through the table spares the torch.stack that would gather them
-// into one tensor first. The host side fills it from three host arrays
-// (data pointers, strides in elements, a float32 flag a row).
+// into one tensor first. The host side fills it from one host array of
+// (data pointer, stride in elements, float32 flag) triples, a row each.
 #pragma once
 
 #include <math.h>
@@ -18,12 +18,11 @@ struct RowTable {
 };
 
 template <int kRows>
-__host__ void fill_rows(RowTable<kRows>& t, const long long* ptrs,
-                        const long long* strides, const int* f32, int n) {
+__host__ void fill_rows(RowTable<kRows>& t, const long long* rows, int n) {
   for (int i = 0; i < n; ++i) {
-    t.ptr[i] = (const void*)ptrs[i];
-    t.stride[i] = strides[i];
-    t.f32[i] = (unsigned char)(f32[i] != 0);
+    t.ptr[i] = (const void*)rows[3 * i];
+    t.stride[i] = rows[3 * i + 1];
+    t.f32[i] = (unsigned char)(rows[3 * i + 2] != 0);
   }
 }
 

@@ -11,8 +11,10 @@ Every C entry point launches on the stream it is given and returns
 
 from __future__ import annotations
 
+import array
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -50,8 +52,8 @@ SIGNATURES = {
     "tsl_dc_block_exact": [_P, _P, _P, _L, _I, _I, _P],
     "tsl_costas_chunks": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
                           _F, _F, _F, _F, _F, _P],
-    "tsl_egress_gate": [_P, _P, _P, _I, _L, _P, _I, _P, _L, _P, _P, _I, _P],
-    "tsl_dc_block_fast": [_P, _P, _P, _P, _P, _P, _I, _L, _P, _P, _P],
+    "tsl_egress_gate": [_P, _I, _L, _P, _I, _P, _L, _P, _P, _I, _I, _I, _P],
+    "tsl_dc_block_fast": [_P, _P, _P, _I, _L, _P, _P, _P, _L, _P],
     "tsl_exact_fm": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
 }
 
@@ -156,29 +158,63 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.tsl_error_string.argtypes = [ctypes.c_int]
         lib.tsl_error_string.restype = ctypes.c_char_p
+        lib.tsl_dc_block_fast_scratch.argtypes = [_L]
+        lib.tsl_dc_block_fast_scratch.restype = _L
         _lib = lib
         return lib
 
 
-def row_table(rows, device, name: str):
-    """The host arrays of a launch's row table (``csrc/row_table.cuh``):
-    data pointers, strides in elements and float32 flags of ``rows``, a
-    list of ``[K]`` int16 or float32 tensors of one length on ``device``
-    (any stride). Returns (K, pointers, strides, flags)."""
-    k = rows[0].shape[-1] if rows else 0
+def row_table(rows, device_index: int, name: str):
+    """A launch's row table (``csrc/row_table.cuh``) as int64s: (data
+    pointer, stride in elements, float32 flag) for each of ``rows``, a
+    list of ``[K]`` int16 or float32 tensors of one length on the CUDA
+    device ``device_index`` (any stride), checked and gathered in one
+    pass into an ``array.array("q")``, whose address the kernel's C
+    entry point takes. Returns (K, table)."""
+    table = array.array("q")
+    shape = rows[0].shape if rows else None
     for r in rows:
-        if r.dim() != 1 or r.shape[0] != k:
+        dtype = r.dtype
+        f32 = dtype is torch.float32
+        if r.shape != shape or len(shape) != 1:
             raise ValueError(f"{name}: rows must be [K] tensors of one "
                              f"length, got {[tuple(x.shape) for x in rows]}")
-        if r.dtype not in (torch.int16, torch.float32):
+        if not f32 and dtype is not torch.int16:
             raise ValueError(f"{name}: rows must be int16 or float32, not "
-                             f"{r.dtype}")
-        if r.device != device:
-            raise ValueError(f"{name}: a row on {r.device}, not {device}")
-    n = len(rows)
-    return (k, (ctypes.c_longlong * n)(*(r.data_ptr() for r in rows)),
-            (ctypes.c_longlong * n)(*(r.stride(0) for r in rows)),
-            (ctypes.c_int * n)(*(r.dtype == torch.float32 for r in rows)))
+                             f"{dtype}")
+        if r.get_device() != device_index:
+            raise ValueError(f"{name}: a row on {r.device}, not "
+                             f"cuda:{device_index}")
+        table.extend((r.data_ptr(), r.stride(0), f32))
+    return (shape[0] if rows else 0), table
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    return torch.cuda.get_device_properties(
+        device_index).multi_processor_count
+
+
+_scratch: dict = {}
+_scratch_lock = threading.Lock()
+
+
+def scratch(name: str, device_index: int, stream: int, nbytes: int):
+    """Kernel ``name``'s device scratch for one (device, stream): a uint8
+    tensor of at least ``nbytes``, zeroed when made and kept between
+    calls. The kernel leaves it ready for its next launch on the stream
+    (it resets what it counts, or marks what it writes with an epoch it
+    advances on the device), so no call zeroes it again; a larger request
+    makes a new zeroed buffer."""
+    key = (name, device_index, stream)
+    with _scratch_lock:
+        buf = _scratch.get(key)
+        if buf is None or buf.numel() < nbytes:
+            buf = _scratch[key] = torch.zeros(
+                nbytes, dtype=torch.uint8,
+                device=torch.device("cuda", device_index))
+        return buf
 
 
 def check(err: int, name: str) -> None:

@@ -21,8 +21,10 @@ form of the recurrence, the first-order IIR
     y[n] = q * y[n-1] + (x[n] - x[n-1]),     q = 1 - p / 2^14
 
 which the JAX package evaluates with ``lax.associative_scan``. On the card
-it is kernel K8, ``csrc/dc_fast.cu`` (a chunked linear scan in float64, a
-CTA a row). The plain version (:func:`dc_block_fast_plain`) is a two-level
+it is kernel K8, ``csrc/dc_fast.cu`` (a single-pass float64 scan over
+chunks of 2,048 samples, many CTAs a row, each finding the y entering its
+chunk by looking back at its predecessors' published sums). The plain
+version (:func:`dc_block_fast_plain`) is a two-level
 chunked scan in float64 built from matrix products with non-negative
 powers of ``q`` (no growing ``q^-n`` factor can overflow): within chunks of
 ``L`` samples, ``local = u @ Tq^T`` with ``Tq[i, j] = q^(i-j)``; across
@@ -34,7 +36,7 @@ within 2 LSB).
 
 from __future__ import annotations
 
-import ctypes
+import array
 from typing import NamedTuple
 
 import numpy as np
@@ -44,7 +46,8 @@ from tsl_sdr_tpu_torch.kernels import build
 from tsl_sdr_tpu_torch.ops import q14
 
 _CHUNK = 256
-_FAST_ROWS = 64   # rows a K8 launch (kRows in dc_fast.cu)
+_FAST_ROWS = 64     # rows a K8 launch (kRows in dc_fast.cu)
+FAST_CHUNK = 2048   # samples a K8 CTA (kChunk)
 
 
 class DcBlockerState(NamedTuple):
@@ -99,28 +102,35 @@ def dc_block_fast(states, rows, coeffs):
     if len(states) != g or len(coeffs) != g:
         raise ValueError(f"{g} rows, {len(states)} states, {len(coeffs)} "
                          f"coefficients")
-    k, ptrs, strides, f32 = build.row_table(rows, dev, "dc_block_fast")
+    idx = dev.index
+    k, table = build.row_table(rows, idx, "dc_block_fast")
     if k == 0:
         raise ValueError("dc_block_fast needs at least one sample")
+    ptrs = array.array("q")
     for st in states:
         for v in (st.x_prev, st.y_prev):
-            if v.dtype != torch.int32 or v.numel() != 1 or v.device != dev:
+            if (v.dtype != torch.int32 or v.numel() != 1
+                    or v.get_device() != idx):
                 raise ValueError(f"state: expected int32 scalars on {dev}, "
                                  f"got {v.dtype}{list(v.shape)} on "
                                  f"{v.device}")
-    x_prev = (ctypes.c_longlong * g)(*(s.x_prev.data_ptr() for s in states))
-    y_prev = (ctypes.c_longlong * g)(*(s.y_prev.data_ptr() for s in states))
-    q = (ctypes.c_double * g)(*(1.0 - p / q14.Q14_ONE for p in coeffs))
+            ptrs.append(v.data_ptr())
+    q = array.array("d", (1.0 - p / q14.Q14_ONE for p in coeffs))
     out = torch.empty((g, k), dtype=torch.int16, device=dev)
     st_out = torch.empty((g, 2), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = build.load().tsl_dc_block_fast(ptrs, strides, f32, x_prev, y_prev,
-                                         q, g, k, out.data_ptr(),
-                                         st_out.data_ptr(), stream)
-    build.check(err, "tsl_dc_block_fast")
-    dc_block_fast.launches += -(-g // _FAST_ROWS)
-    return [DcBlockerState(x_prev=st_out[i, 0], y_prev=st_out[i, 1],
-                           acc=states[i].acc) for i in range(g)], out
+    lib = build.load()
+    nbytes = lib.tsl_dc_block_fast_scratch(k)
+    scratch = build.scratch("dc_block_fast", idx, stream, nbytes)
+    build.check(lib.tsl_dc_block_fast(
+        table.buffer_info()[0], ptrs.buffer_info()[0], q.buffer_info()[0], g,
+        k, out.data_ptr(), st_out.data_ptr(), scratch.data_ptr(), nbytes,
+        stream), "tsl_dc_block_fast")
+    launches = -(-g // _FAST_ROWS)
+    dc_block_fast.launches += launches
+    xs, ys = st_out.t().unbind()
+    return [DcBlockerState(x_prev=x, y_prev=y, acc=st.acc)
+            for x, y, st in zip(xs.unbind(), ys.unbind(), states)], out
 
 
 dc_block_fast.launches = 0

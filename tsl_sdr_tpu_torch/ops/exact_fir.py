@@ -24,8 +24,6 @@ either form of the product; the tile is cut for a short block
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from tsl_sdr_tpu_torch.kernels import build
@@ -76,18 +74,14 @@ def exact_fir(taps: ChainTaps, carry_vals: torch.Tensor,
         carry_vals.data_ptr(), block.data_ptr(), xt.w_hi.data_ptr(),
         xt.w_lo.data_ptr(), xt.ktab.data_ptr(), res.data_ptr(), rows,
         plan.row, plan.cr_rows, plan.win, plan.nr_channels, plan.opr,
-        xt.tiles_per_block, xt.launch_rows(rows, _sm_count(block.device)),
-        xt.stages,
+        xt.tiles_per_block,
+        xt.launch_rows(rows, build.sm_count(block.get_device())), xt.stages,
         xt.tap_block_bytes if xt.staged else 0, OUT_MODES[out], stream)
     build.check(err, "tsl_exact_fir")
     exact_fir.launches += 1
     exact_fir.grouped_launches += taps.grouped
     return (res[0], res[1]) if out == "q14" else res
 
-
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 exact_fir.launches = 0
