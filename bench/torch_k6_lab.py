@@ -61,7 +61,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     for name in ("jax", "jaxlib", "tsl_sdr_tpu"):
         sys.modules[name] = None
-    import numpy as np
     import torch
 
     import chip_smoke as cs
@@ -80,10 +79,8 @@ def main() -> int:
     iq, block = cs.costas_capture(chain, 1)
     vals = torch.from_numpy(iq[:chain.carry_len + block].reshape(-1)
                             .copy()).cuda()
-    yr, yi = chain._baseband(vals[:2 * chain.carry_len],
-                             vals[2 * chain.carry_len:], 0)
-    scale = float(np.float32(1.0 / 16384.0))
-    xr, xi = yr * scale * scale, yi * scale * scale
+    xr, xi = chain._baseband(vals[:2 * chain.carry_len],
+                             vals[2 * chain.carry_len:], 0, "planes")
     p = chain.params
     st = k6.init_costas_state(p, chain.nr_channels, "cuda")
     chunk = k6.stable_chunk(p)

@@ -14,7 +14,8 @@ reference's resampler settings, the pipeline at decimation 50, the
 bit-exact tier, ``multifm-torch`` at ``etc/multifm_rtlsdr_8ch.json``,
 wide channel banks (BENCH_SUITE's 64 and 256 channels, the Airspy band's
 232), the Costas coherent chain (BENCH_SUITE's costas_chain_device
-row), and the block's last stages (K7, K8, K9):
+row), and the block's last stages (K7, K8, K9) and the Costas chain's NCO
+(K10):
 
 1. the card's name and power limit; the kernels' build (nvcc) and the
    decoders' native state machines (g++);
@@ -104,7 +105,11 @@ row), and the block's last stages (K7, K8, K9):
    rtl_u8 capture with one POCSAG burst per channel: both tiers under both
    I/O runtimes, and the production tier through the mock RTL-SDR; each
    channel's PCM must decode its burst, and each tier's PCM must equal the
-   plain-version run byte for byte; walls and Msps per run;
+   plain-version run byte for byte; then the production tier with the
+   debug tap (``signalDebugFile`` on every channel, ``step_debug``: K5's
+   raw sums and K10): PCM and IQ equal to its plain-version run, the PCM
+   within 1 LSB of the production run's and decoded; walls and Msps per
+   run;
 17. wide channel banks: (a) K1 and K5 at BENCH_SUITE's channelizer block
    (16,711,680 samples at 1 Msps, decimation 40, 128 taps) at 64 and 256
    channels (K1 on its bank body in sub-blocks of 16 channels, K5 in
@@ -124,7 +129,8 @@ row), and the block's last stages (K7, K8, K9):
    12.5 kHz apart (a 2 s capture, 7 bursts), where K1 runs its bank body:
    the production run must launch it (``chain_fm.bank_launches``);
 18. the Costas coherent chain (``CostasChannelizer``: K5's raw sums, the
-   integer NCO, K6 ``csrc/costas.cu``) at BENCH_SUITE's costas_chain_device
+   integer NCO and its scalings (K10, ``csrc/nco.cu``), K6
+   ``csrc/costas.cu``) at BENCH_SUITE's costas_chain_device
    settings (8 channels, 1 Msps, decimation 8, 64 taps, 2,000,000-sample
    blocks, chunk 22): (a) K6 against its plain version on the chain's own
    planes (250,000 x 8), at chunks 32 and 512 on 1 and 33 channels, on
@@ -188,12 +194,21 @@ row), and the block's last stages (K7, K8, K9):
    and K8's device and call times at 1 and 65 rows of 54,400 samples;
    (c) K9 (the exact tier's derotation and LUT discriminator,
    ``csrc/exact_fm.cu``) against its plain version, bit for bit, on K5's
-   sums at the exact pager block and at ``multifm_rtlsdr_8ch``'s block and
-   on adversarial sums (full scale, zero vectors, products on the LUT's
-   abscissae); each kernel's times and bound; (d) the device launches
+   sums at the exact pager block and at ``multifm_rtlsdr_8ch``'s block, on
+   adversarial sums (full scale, zero vectors, products on the LUT's
+   abscissae), and on random and adversarial sums at the exact wide banks'
+   K9 shapes (64 and 232 channels, multifm-torch's block); each kernel's
+   times and bound, K9's at those four shapes; (d) the device launches
    (kernels and copies, torch.profiler) of a pager block's engine step and
    of an exact pager block's dispatch, with the new kernels and with their
-   plain versions, and the step's time both ways in turns.
+   plain versions, and the step's time both ways in turns;
+22. K10 (the integer NCO and its scalings, ``csrc/nco.cu``) against its
+   plain version in both modes (the Costas loop's planes, the int16
+   baseband) on the Costas row's raw sums (250,000 x 8) at output 0 and
+   past 2^32: the values that differ and by how many ulp (0 required);
+   its device, call, plain and bound ms in each mode; a Costas block's
+   kernels and copies (torch.profiler) with K10 and with the plain NCO,
+   and the block's wall both ways in turns.
 
 Each path of phases 4, 8, 9, 10, 14, 15, 16, 17, 18, 19 and 20 and each
 run of phase 12 runs with the
@@ -206,7 +221,7 @@ kernel's bound is the larger of its bytes over HBM's rate and its int16
 multiply-adds (four int8 tensor-core products each) over the int8 peak,
 from the H100's published peaks; the DC kernel's and K6's are their
 chains' latency; K7's, K8's and K9's count their integer or float64
-operations at the CUDA cores' rates.
+operations at the CUDA cores' rates, and K10's its float32 ones.
 Any failed check raises and the exit code is non-zero. The last two lines
 are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
 """
@@ -324,7 +339,7 @@ def launch_counts() -> dict:
     from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
     from tsl_sdr_tpu_torch.ops import exact_fir as k5
     from tsl_sdr_tpu_torch.ops import frame_resampler as k4
-    from tsl_sdr_tpu_torch.ops import fm, gate
+    from tsl_sdr_tpu_torch.ops import fm, gate, packed_fir
     from tsl_sdr_tpu_torch.ops import row_resampler as k3
 
     return {"chain_fm": k1.chain_fm.launches,
@@ -339,7 +354,8 @@ def launch_counts() -> dict:
             "costas_chunks": k6.costas_block_planes.launches,
             "egress_gate": gate.egress_gate.launches,
             "dc_block_fast": dcb.dc_block_fast.launches,
-            "exact_fm": fm.exact_fm.launches}
+            "exact_fm": fm.exact_fm.launches,
+            "nco_derotate": packed_fir.nco_derotate.launches}
 
 
 def zero_launch_counts() -> None:
@@ -348,7 +364,7 @@ def zero_launch_counts() -> None:
     from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
     from tsl_sdr_tpu_torch.ops import exact_fir as k5
     from tsl_sdr_tpu_torch.ops import frame_resampler as k4
-    from tsl_sdr_tpu_torch.ops import fm, gate
+    from tsl_sdr_tpu_torch.ops import fm, gate, packed_fir
     from tsl_sdr_tpu_torch.ops import row_resampler as k3
 
     k1.chain_fm.launches = 0
@@ -364,6 +380,7 @@ def zero_launch_counts() -> None:
     gate.egress_gate.launches = 0
     dcb.dc_block_fast.launches = 0
     fm.exact_fm.launches = 0
+    packed_fir.nco_derotate.launches = 0
 
 
 def on_path(name: str, kernels, fn, totals: dict):
@@ -1603,7 +1620,7 @@ def plain_kernels(names=None):
     from tsl_sdr_tpu_torch.ops import costas as k6
     from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
     from tsl_sdr_tpu_torch.ops import exact_fir as k5
-    from tsl_sdr_tpu_torch.ops import fm, gate, polyphase
+    from tsl_sdr_tpu_torch.ops import fm, gate, packed_fir, polyphase
     from tsl_sdr_tpu_torch.ops import frame_resampler as k4
     from tsl_sdr_tpu_torch.ops import row_resampler as k3
 
@@ -1614,13 +1631,14 @@ def plain_kernels(names=None):
              "costas_block_planes": k6.costas_block_planes_plain,
              "egress_gate": gate.egress_gate_plain,
              "dc_block_fast": dcb.dc_block_fast_plain,
-             "exact_fm": fm.exact_fm_plain}
+             "exact_fm": fm.exact_fm_plain,
+             "nco_derotate": packed_fir.nco_derotate_plain}
     if names is not None:
         plain = {k: v for k, v in plain.items() if k in names}
     before = launch_counts()
     saved = []
     for mod in (channelizer, resampler, polyphase, k4, dcb, costas_channel,
-                k6, gate, fm):
+                k6, gate, fm, packed_fir):
         for name, fn in plain.items():
             if hasattr(mod, name):
                 saved.append((mod, name, getattr(mod, name)))
@@ -2038,11 +2056,14 @@ def multifm_runs(device, tmp: Path, totals: dict) -> dict:
     n = wire.shape[0]
     nch = len(cfg.channels)
 
-    def run(tag, flags, kernels, plain=False, mock=False):
+    def run(tag, flags, kernels, plain=False, mock=False, debug=False):
         over = tmp / f"mf_{tag}.json"
         doc = {"channels": [{"outFifo": str(tmp / f"mf_{tag}_ch{k}.pcm"),
                              "chanCenterFreq": ch.chan_center_freq}
                             for k, ch in enumerate(cfg.channels)]}
+        if debug:
+            for k, ch in enumerate(doc["channels"]):
+                ch["signalDebugFile"] = str(tmp / f"mf_{tag}_ch{k}.iq")
         over.write_text(json.dumps(doc))
         argv = [str(base), str(over), "--device", device, *flags]
         if not mock:
@@ -2103,6 +2124,41 @@ def multifm_runs(device, tmp: Path, totals: dict) -> dict:
         res[f"{tier}_plain"] = {"wall_s": wall}
         log(f"multifm-torch {tier}: PCM == the plain-version run byte for "
             f"byte on all 8 channels ({wall:.3f} s), both runtimes agree")
+
+    # the production tier's debug tap (signalDebugFile on every channel,
+    # cli/multifm.py -> MultifmChain.step_debug): K5's raw sums, the plain
+    # discriminator and K10 a block; the IQ and PCM equal the plain-version
+    # run's, the PCM is the production run's within 1 LSB and decodes
+    dbg = {}
+    for tag, plain in (("debug", False), ("debug_plain", True)):
+        pcm, wall = run(tag, ["--runtime", "python"],
+                        ("exact_fir", "nco_derotate"), plain=plain,
+                        debug=True)
+        iq_dbg = [np.fromfile(tmp / f"mf_{tag}_ch{k}.iq", np.int16)
+                  for k in range(nch)]
+        dbg[tag] = (pcm, iq_dbg, wall)
+    (pcm, iq_dbg, wall), (pcm_p, iq_p, wall_p) = dbg["debug"], \
+        dbg["debug_plain"]
+    for k in range(nch):
+        got = decode_25k(pcm[k], device)
+        require(got == [expected[k]], f"multifm-torch debug tap channel {k} "
+                f"decoded {got}, expected {expected[k]}")
+        prod = pcms["production_python"][k]
+        require(pcm[k].size == prod.size
+                and int(pcm_diff(pcm[k], prod).max()) <= 1,
+                f"multifm-torch debug tap channel {k}: PCM not within 1 LSB "
+                f"of the production run")
+        require(iq_dbg[k].size == 2 * pcm[k].size
+                and pcm[k].tobytes() == pcm_p[k].tobytes()
+                and iq_dbg[k].tobytes() == iq_p[k].tobytes(),
+                f"multifm-torch debug tap channel {k}: PCM or IQ differs from "
+                f"the plain-version run")
+    res["debug"] = {"wall_s": wall, "plain_wall_s": wall_p,
+                    "msps": n / wall / 1e6, "samples": int(n)}
+    log(f"multifm-torch production with the debug tap: 8 of 8 channels "
+        f"decode, PCM within 1 LSB of the production run; PCM and IQ == "
+        f"the plain-version run byte for byte; {wall:.3f} s "
+        f"({wall_p:.3f} s plain)")
 
     env = {mock_radios.ENV_VARS["rtlsdr"]: str(mock_radios.build("rtlsdr")),
            "MOCK_RTLSDR_DATA": str(wire_path)}
@@ -2542,15 +2598,12 @@ def slice_planes(chain, iq, block: int, device):
     """The loop's input planes of the capture's first block: K5's raw sums
     derotated by the NCO and scaled by 2^-14 twice, as ``chain.step``
     hands them to K6 ([K, C] float32 on ``device``)."""
-    import numpy as np
     import torch
 
     vals = torch.from_numpy(iq[:chain.carry_len + block].reshape(-1)
                             .copy()).to(device)
-    yr, yi = chain._baseband(vals[:2 * chain.carry_len],
-                             vals[2 * chain.carry_len:], 0)
-    scale = float(np.float32(1.0 / 16384.0))
-    return yr * scale * scale, yi * scale * scale
+    return chain._baseband(vals[:2 * chain.carry_len],
+                           vals[2 * chain.carry_len:], 0, "planes")
 
 
 def check_costas(chain, iq, block: int, device) -> float:
@@ -2698,9 +2751,10 @@ def check_lock(device, totals: dict) -> dict:
 
     res = {}
     for tier, fn, kernels in (
-            ("step", step_path, ("exact_fir", "costas_chunks")),
+            ("step", step_path, ("exact_fir", "nco_derotate",
+                                  "costas_chunks")),
             ("native", lambda: chain.process_array_native(iq, block),
-             ("exact_fir",))):
+             ("exact_fir", "nco_derotate"))):
         out = on_path(f"the Costas lock capture ({tier})", kernels, fn,
                       totals)
         v = lock_verdicts(out)
@@ -2753,7 +2807,8 @@ def costas_phase(device, totals: dict) -> dict:
     # (b) the chain end to end, against the run with every kernel swapped
     # for its plain version
     t0 = time.perf_counter()
-    got, st_k = on_path("the Costas chain", ("exact_fir", "costas_chunks"),
+    got, st_k = on_path("the Costas chain",
+                        ("exact_fir", "nco_derotate", "costas_chunks"),
                         lambda: costas_run(chain, iq, block), totals)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3708,19 +3763,29 @@ def check_dc_fast(device) -> dict:
             "times": times[1], "times_65": times[65]}
 
 
+# K9's shapes on the exact wide banks: multifm-torch's default block
+# (262,144 samples, cut to the quantum) at phase 17's 64 channels (1 Msps,
+# decimation 40, 128 taps) and 232 channels (the Airspy band, 3 Msps,
+# decimation 120): outputs a block by channels
+K9_WIDE = {"64 channels": (6_552, 64), "232 channels": (2_176, 232)}
+
+
 def check_exact_fm(chain, pager_vals, device) -> dict:
     """(c) K9 against its plain version, exactly (PCM, channelized IQ, FM
     carry), on K5's sums and the host rotator at the exact pager block and
-    at etc/multifm_rtlsdr_8ch.json's block, and on adversarial sums at the
-    pager block's shape; then K9's times at the pager block."""
+    at etc/multifm_rtlsdr_8ch.json's block, on adversarial sums at the
+    pager block's shape, and on random and adversarial sums at the exact
+    wide banks' shapes (K9_WIDE); then K9's times at each of those four
+    shapes."""
     import numpy as np
     import torch
 
+    from tsl_sdr_tpu_torch.kernels import build
     from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
     from tsl_sdr_tpu_torch.ops import exact_fir as k5
     from tsl_sdr_tpu_torch.ops import fm
     from tsl_sdr_tpu_torch.runtime.native import rotator_seq
-    from tsl_sdr_tpu_torch.testing.stage_inputs import k9_inputs
+    from tsl_sdr_tpu_torch.testing.stage_inputs import K9_CASES, k9_inputs
     from tsl_sdr_tpu_torch.utils.config import MultifmConfig
 
     cfg8 = MultifmConfig.load(HERE / "etc" / "multifm_rtlsdr_8ch.json")
@@ -3748,6 +3813,11 @@ def check_exact_fm(chain, pager_vals, device) -> dict:
     for name in ("full scale", "zero vectors", "table abscissae"):
         inputs[name] = tuple(torch.from_numpy(a).to(device)
                              for a in k9_inputs(name, k, nc, seed=21))
+    for wide, (kw, cw) in K9_WIDE.items():
+        for name in K9_CASES:
+            key = wide if name == "random" else f"{wide}, {name}"
+            inputs[key] = tuple(torch.from_numpy(a).to(device)
+                                for a in k9_inputs(name, kw, cw, seed=cw))
     for name, args in inputs.items():
         got = fm.exact_fm(*args)
         want = fm.exact_fm_plain(*args)
@@ -3756,19 +3826,27 @@ def check_exact_fm(chain, pager_vals, device) -> dict:
         require(all(eq), f"K9 {name}: pcm, ch, fm_last equal {eq}")
         log(f"(c) K9 {name} [{args[0].shape[0]} x {args[0].shape[1]}]: PCM, "
             f"channelized IQ and FM carry bit-equal to the plain version")
-    args = inputs["exact pager block"]
-    t = kernel_times(lambda: fm.exact_fm_plain(*args),
-                     lambda: fm.exact_fm(*args), 10, 50)
-    pcm, ch, last2 = fm.exact_fm(*args)
-    # ~40 operations a sample: two derotations, the products, the LUT
-    # arctangent and the scale
-    t["bound_ms"], t["bound_by"] = bound(
-        0, nbytes(*args, pcm, ch, last2) + 257 * 4, 40 * k * nc)
-    log(f"K9 the exact pager block ({k} x {nc}): kernel {t['ms']:.4f} ms "
-        f"(call {t['call_ms']:.4f}), plain {t['plain_ms']:.4f} ms, bound "
-        f"{t['bound_ms']:.5f} ms ({t['bound_by']}), "
-        f"{t['bound_ms'] / t['ms']:.1%} of it")
-    return {"shapes": len(inputs), "times": t}
+    times = {}
+    for name in ("exact pager block", "multifm_rtlsdr_8ch block", *K9_WIDE):
+        args = inputs[name]
+        kt, ct = args[0].shape
+        t = kernel_times(lambda: fm.exact_fm_plain(*args),
+                         lambda: fm.exact_fm(*args), 10, 50)
+        pcm, ch, last2 = fm.exact_fm(*args)
+        # ~40 operations a sample: the derotation, the products, the LUT
+        # arctangent and the scale
+        t["bound_ms"], t["bound_by"] = bound(
+            0, nbytes(*args, pcm, ch, last2) + 257 * 4, 40 * kt * ct)
+        tk, cb = fm.exact_fm_tile(kt, ct, build.sm_count(0))
+        t["tile"] = [tk, cb]
+        t["ctas"] = -(-kt // tk) * -(-ct // cb)
+        log(f"K9 {name} ({kt} x {ct}, tile {tk} x {cb}, {t['ctas']} CTAs): "
+            f"kernel {t['ms']:.4f} ms (call {t['call_ms']:.4f}), plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of it")
+        times[name] = t
+    return {"shapes": len(inputs), "times": times["exact pager block"],
+            "shape_times": times}
 
 
 def block_launches(fn) -> dict:
@@ -3876,8 +3954,102 @@ def last_stages_phase(pipe, iq, device) -> dict:
     return res
 
 
+# -- phase 22: K10, the integer NCO and its scalings --------------------------
+
+def ulp_diff(got, want) -> tuple:
+    """(values that differ, the largest difference): in units in the last
+    place for float32 tensors (their bit patterns as int32, same sign),
+    in LSB for integer ones."""
+    import torch
+
+    if got.dtype == torch.float32:
+        a, b = got.view(torch.int32).long(), want.view(torch.int32).long()
+    else:
+        a, b = got.long(), want.long()
+    d = (a - b).abs()
+    return int((d != 0).sum()), int(d.max())
+
+
+def nco_phase(device) -> dict:
+    """Phase 22: K10 against its plain version in both modes on the Costas
+    row's raw sums (the chain's first block, 250,000 x 8) at output 0 and
+    past 2^32, its device, call, plain and bound ms in each mode, then a
+    Costas block's kernels and copies (torch.profiler) with K10 and with
+    the plain NCO, and the block's wall both ways in turns."""
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import exact_fir as k5
+    from tsl_sdr_tpu_torch.ops import packed_fir
+
+    chain = costas_bench_chain(device)
+    iq, block = costas_capture(chain, 1)
+    vals = torch.from_numpy(iq.reshape(-1).copy()).to(device)
+    c_v = 2 * chain.carry_len
+    p = k5.exact_fir(chain.taps, vals[:c_v], vals[c_v:], "raw")
+    om = chain._omega_i32
+    n = p.numel() // 2
+    res = {"differ": {}}
+    for out in ("planes", "int16"):
+        for k0 in (0, 2**32 + 12_345):
+            got = packed_fir.nco_derotate(p, om, k0, out)
+            want = packed_fir.nco_derotate_plain(p, om, k0, out)
+            torch.cuda.synchronize()
+            if out == "int16":
+                got, want = (got,), (want,)
+            diffs = [ulp_diff(a, b) for a, b in zip(got, want)]
+            res["differ"][f"{out} k0={k0}"] = diffs
+            log(f"K10 {out} at k0 = {k0} ({n // chain.nr_channels} x "
+                f"{chain.nr_channels}): values differing from the plain "
+                f"version and the largest difference "
+                f"({'ulp' if out == 'planes' else 'LSB'}) by plane {diffs}")
+            require(all(d == (0, 0) for d in diffs),
+                    f"K10 {out} at k0 = {k0}: differs from its plain "
+                    f"version {diffs}")
+        t = kernel_times(
+            lambda out=out: packed_fir.nco_derotate_plain(p, om, 0, out),
+            lambda out=out: packed_fir.nco_derotate(p, om, 0, out), 10, 50)
+        # each (k, c): 8 B of sums in, 8 B (planes) or 4 B (int16) out;
+        # about 80 float32 operations (the angle, sincos, the rotation)
+        t["bound_ms"], t["bound_by"] = bound(
+            0, nbytes(p, om) + n * (8 if out == "planes" else 4), 80 * n)
+        log(f"K10 {out} ({n // chain.nr_channels} x {chain.nr_channels}): "
+            f"kernel {t['ms']:.4f} ms (call {t['call_ms']:.4f}), plain "
+            f"{t['plain_ms']:.4f} ms (call {t['plain_call_ms']:.4f}), "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+            f"{t['bound_ms'] / t['ms']:.1%} of it; no library call")
+        res[out] = t
+    del p
+    st0 = chain.init_state(prefix=iq[:chain.carry_len])
+    blk = vals[c_v:]
+
+    def step():
+        return chain.step(st0, blk)
+
+    after = block_launches(step)
+    with plain_kernels(("nco_derotate",)):
+        before = block_launches(step)
+
+    def plain_timer(f, reps):
+        with plain_kernels(("nco_derotate",)):
+            return time_ms(f, reps)
+
+    ms, plain_ms = in_turns(step, step, 10, 10, timer=time_ms,
+                            plain_timer=plain_timer)
+    res["block"] = {"launches": after, "launches_before": before,
+                    "ms": ms, "plain_ms": plain_ms, "samples": block}
+    log(f"Costas block ({block} samples, device input): {after['kernels']} "
+        f"kernels + {after['copies']} copies with K10 (the plain NCO: "
+        f"{before['kernels']} + {before['copies']}); {ms:.3f} ms a block, "
+        f"{plain_ms:.3f} with the plain NCO (in turns)")
+    res["kernel"] = {"name": "nco_derotate", "route": "cuda",
+                     "source": "tsl_sdr_tpu_torch/csrc/nco.cu",
+                     "replaces": "tsl_sdr_tpu/ops/packed_fir.py:474",
+                     "max_abs_err": 0.0, **res["planes"]}
+    return res
+
+
 def smoke(device: str) -> dict:
-    """Phases 2-21 on ``device``; returns the kernels' summary."""
+    """Phases 2-22 on ``device``; returns the kernels' summary."""
     import torch
 
     from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
@@ -3953,6 +4125,7 @@ def smoke(device: str) -> dict:
 
     front = front_end(device, totals)
     costas = costas_phase(device, totals)
+    nco = nco_phase(device)
     k3_f32 = k3_times["pipeline 5/12"]
     k3_q14 = k3_times["192/125 decoder step"]
     return {
@@ -3967,6 +4140,7 @@ def smoke(device: str) -> dict:
         "mesh": mesh,
         "surface": surface,
         "last": last,
+        "nco": nco,
         "kernels": [
             {"name": "chain_fm", "route": "cuda",
              "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
@@ -3996,6 +4170,7 @@ def smoke(device: str) -> dict:
              "max_abs_err": wide_k["err"], **wide_k[256]["exact_fir_raw"]},
             costas["kernel"],
             *last["kernels"],
+            nco["kernel"],
         ],
         "launches": totals,
     }
@@ -4127,6 +4302,15 @@ def main() -> int:
         f"{last['dc']['max_abs_err']} LSB, {last['dc']['differ']} differ")
     for name in ("times", "times_65"):
         log(f"{card} | K8 {name}: {json.dumps(last['dc'][name])}")
+    for name, t in last["exact_fm"]["shape_times"].items():
+        log(f"{card} | K9 {name}: {json.dumps(t)}")
+    nco = summary["nco"]
+    for out in ("planes", "int16"):
+        log(f"{card} | K10 {out}: {json.dumps(nco[out])}")
+    log(f"{card} | K10 differing values (count, ulp or LSB) by plane: "
+        f"{json.dumps(nco['differ'])}")
+    log(f"{card} | Costas block with K10 and with the plain NCO: "
+        f"{json.dumps(nco['block'])}")
     for kernel in ("k3", "k4"):
         for name, k in summary[kernel].items():
             log(f"{card} | {kernel.upper()} {name}: {json.dumps(k)}")

@@ -27,7 +27,9 @@ chain's int16 output equal to the run with every kernel swapped for its
 plain version; K7 (the egress gate) EXACTLY equal, output buffer and new
 tail; K8 (the fast DC blocker) within 1 LSB (float64 sums in another
 order); K9 (the exact tier's derotation and discriminator) EXACTLY
-equal.
+equal, at every tile shape and off the 16-byte grid; K10 (the integer NCO
+and its scalings) EXACTLY equal in both modes (its cosf and sinf are the
+ones torch's cos and sin call on the card).
 """
 
 import dataclasses
@@ -45,7 +47,7 @@ from tsl_sdr_tpu_torch.ops import costas as k6
 from tsl_sdr_tpu_torch.ops import exact_fir as k5
 from tsl_sdr_tpu_torch.ops import dc_blocker, fm, gate
 from tsl_sdr_tpu_torch.ops import frame_resampler as k4
-from tsl_sdr_tpu_torch.ops import polyphase, q14
+from tsl_sdr_tpu_torch.ops import packed_fir, polyphase, q14
 from tsl_sdr_tpu_torch.ops import row_resampler as k3
 from tsl_sdr_tpu_torch.testing import pager, stage_inputs
 from tsl_sdr_tpu_torch.utils.filter_design import (
@@ -1056,3 +1058,151 @@ def test_new_wrappers_raise_on_bad_input(cuda):
     with pytest.raises(ValueError, match="seq"):
         fm.exact_fm(z, z, z, torch.zeros((2, 2), dtype=torch.int32,
                                          device=cuda))
+
+
+# -- K9's tiles and K10 (the integer NCO and its scalings) -------------------
+
+@pytest.mark.parametrize("c,k", [(1, 4109), (8, 130_557), (64, 6_553),
+                                 (232, 2_181), (256, 1_031)])
+@pytest.mark.parametrize("name", ["random", "full scale"])
+def test_exact_fm_kernel_tiles_match_plain(cuda, c, k, name):
+    """K9 at one channel (a tile of 4,096 outputs), the pager's 8, 64 (every
+    channel a CTA), 232 and 256 (blocks of 32), each with a ragged last
+    tile: PCM, channelized IQ and FM carry bit-equal; then the same inputs
+    off the 16-byte grid (the kernel's scalar loads)."""
+    args = [torch.from_numpy(a).to(cuda)
+            for a in stage_inputs.k9_inputs(name, k, c, seed=c)]
+    off = []
+    for a, by in zip(args[:3], (1, 1, 2)):   # seq by one (re, im) pair
+        buf = torch.empty(a.numel() + 2, dtype=a.dtype, device=cuda)
+        view = buf[by:by + a.numel()].view(a.shape)
+        view.copy_(a)
+        assert view.data_ptr() % 16
+        off.append(view)
+    for inputs in (args, off + args[3:]):
+        got = fm.exact_fm(*inputs)
+        want = fm.exact_fm_plain(*inputs)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def _costas_row_sums(cuda, blocks=1):
+    """K5's raw sums of random IQ at BENCH_SUITE's costas_chain_device
+    chain (8 channels, decimation 8, 2,000,000-sample blocks): the chain
+    and one [rows, 2 * halfcols] int32 tensor a block."""
+    from tsl_sdr_tpu_torch.utils.filter_design import firdes_low_pass
+
+    fs = 1_000_000
+    lpf = firdes_low_pass(1.0, fs, 40_000, 20_000)[:64]
+    offsets = np.random.default_rng(0).integers(-fs // 3, fs // 3, size=8)
+    chain = costas_channel.CostasChannelizer(lpf, offsets, fs, 8,
+                                             device=cuda)
+    n = 2_000_000 // chain.block_quantum * chain.block_quantum
+    iq = torch.from_numpy(_iq(chain.carry_len + blocks * n, 22)).to(cuda)
+    vals = iq.reshape(-1)
+    c_v = 2 * chain.carry_len
+    sums = [k5.exact_fir(chain.taps, vals[c_v + 2 * b * n - c_v:
+                                          c_v + 2 * b * n],
+                         vals[c_v + 2 * b * n:c_v + 2 * (b + 1) * n], "raw")
+            for b in range(blocks)]
+    return chain, sums
+
+
+@pytest.mark.parametrize("k0", [0, 2**31 - 50_000, 5 * 2**32 + 3])
+def test_nco_kernel_matches_plain(cuda, k0):
+    """K10 at the Costas row (250,000 x 8) in both modes, at output
+    indices where the int32 phase wraps inside the block: bit-equal to
+    its plain version (torch's cos and sin on the card are the CUDA math
+    library's, as the kernel's)."""
+    chain, (p,) = _costas_row_sums(cuda)
+    om = chain._omega_i32
+    before = packed_fir.nco_derotate.launches
+    for out in ("planes", "int16"):
+        got = packed_fir.nco_derotate(p, om, k0, out)
+        want = packed_fir.nco_derotate_plain(p, om, k0, out)
+        torch.cuda.synchronize()
+        got, want = (got, want) if out == "planes" else ((got,), (want,))
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(a, b), int((a != b).sum())
+    assert packed_fir.nco_derotate.launches == before + 2
+
+
+@pytest.mark.parametrize("rows,c,opr", [(97, 3, 5), (5, 1, 1), (64, 8, 3)])
+def test_nco_kernel_scalar_shapes(cuda, rows, c, opr):
+    """Rows of a length off the 4-vector grid (the kernel's scalar loads
+    and stores) and a p one element off the 16-byte grid, full-scale sums
+    that saturate the int16 baseband: both modes bit-equal."""
+    rng = np.random.default_rng(rows)
+    p = torch.from_numpy(rng.integers(-2**31, 2**31, size=(
+        rows, 2 * opr * c)).astype(np.int32)).to(cuda)
+    om = torch.from_numpy(packed_fir.omega_turns_i32(
+        rng.uniform(-np.pi, np.pi, size=c))).to(cuda)
+    buf = torch.empty(p.numel() + 1, dtype=torch.int32, device=cuda)
+    moved = buf[1:].view(p.shape)
+    moved.copy_(p)
+    for src in (p, moved):
+        for out in ("planes", "int16"):
+            got = packed_fir.nco_derotate(src, om, 2**32 - 7, out)
+            want = packed_fir.nco_derotate_plain(src, om, 2**32 - 7, out)
+            torch.cuda.synchronize()
+            got, want = (got, want) if out == "planes" else ((got,), (want,))
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+
+
+def test_costas_paths_launch_k10_once_a_block(cuda):
+    """``CostasChannelizer.step`` and ``process_array_native`` and the
+    production tier's ``step_debug`` each launch K10 once a block."""
+    chain, _ = _costas_row_sums(cuda, blocks=0)
+    q = chain.block_quantum
+    n = 100_000 // q * q
+    iq = _iq(chain.carry_len + 3 * n, 23)
+    counter = packed_fir.nco_derotate
+    before = counter.launches
+    st = chain.init_state(prefix=iq[:chain.carry_len])
+    for b in range(3):
+        lo = chain.carry_len + b * n
+        st, _ = chain.step(st, iq[lo:lo + n])
+    assert counter.launches == before + 3
+    chain.process_array_native(iq, block_size=n)
+    assert counter.launches == before + 6
+    mf = MultifmChain(pager.lpf_taps(), pager.OFFSETS_HZ[:3], pager.FS,
+                      pager.DECIMATION, exact=False, device=cuda)
+    x = _iq(mf.carry_len + 2 * 8 * mf.block_quantum, 24)
+    st = mf.init_state(x[:mf.carry_len])
+    for b in range(2):
+        lo = mf.carry_len + b * 8 * mf.block_quantum
+        st, _, _ = mf.step_debug(st, x[lo:lo + 8 * mf.block_quantum])
+    assert counter.launches == before + 8
+
+
+def test_nco_and_exact_fm_wrappers_raise_on_bad_input(cuda):
+    """K9 and K10 refuse wrong dtypes, shapes and devices before any
+    launch."""
+    om = torch.zeros(4, dtype=torch.int32, device=cuda)
+    p = torch.zeros((6, 16), dtype=torch.int32, device=cuda)
+    before = packed_fir.nco_derotate.launches
+    with pytest.raises(ValueError, match="int32"):
+        packed_fir.nco_derotate(p.float(), om, 0, "planes")
+    with pytest.raises(ValueError, match="a multiple of 4"):
+        packed_fir.nco_derotate(p[:, :12], om, 0, "int16")
+    with pytest.raises(ValueError, match="omega_i32"):
+        packed_fir.nco_derotate(p, om.long(), 0, "planes")
+    with pytest.raises(ValueError, match="on cpu"):
+        packed_fir.nco_derotate(p, om.cpu(), 0, "planes")
+    with pytest.raises(ValueError, match="contiguous"):
+        packed_fir.nco_derotate(p.T.contiguous().T, om, 0, "planes")
+    assert packed_fir.nco_derotate.launches == before
+    z = torch.zeros((8, 2), dtype=torch.int16, device=cuda)
+    last = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="a_im"):
+        fm.exact_fm(z, z.int(), torch.zeros((8, 2, 2), dtype=torch.int16,
+                                            device=cuda), last)
+    with pytest.raises(ValueError, match="last"):
+        fm.exact_fm(z, z, torch.zeros((8, 2, 2), dtype=torch.int16,
+                                      device=cuda), last.cpu())
+    seq = torch.zeros(8 * 2 * 2 + 1, dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError, match="4-byte"):
+        fm.exact_fm(z, z, seq[1:].view(8, 2, 2), last)

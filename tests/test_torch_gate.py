@@ -6,9 +6,10 @@ the pager pipeline through them.
 Each kernel's arithmetic is also emulated here in numpy, CTA by CTA and
 thread by thread as its CUDA source walks it (K7's tiles, ballot words,
 residue-class register runs, match words and flag fold; K8's chunks and
-look-back in a shuffled CTA order), and held to the plain version, so
-that what the card alone can run has its indexing checked where the
-tests run.
+look-back in a shuffled CTA order; K9's tiles, halo rows, channel blocks
+and groups of 8 on and off the 16-byte grid), and held to the plain
+version, so that what the card alone can run has its indexing checked
+where the tests run.
 
 Tolerances: the gate EXACT (flags, packed bytes, pcm and tails, byte for
 byte); the DC blocker within 2 PCM LSB of JAX's float32 associative scan
@@ -601,29 +602,27 @@ def test_exact_fm_plain_matches_jax(name):
     np.testing.assert_array_equal(last2.numpy(), ref_last)
 
 
-def _emulate_exact_fm(a_re, a_im, seq, last):
-    """exact_fm.cu in numpy: every thread's two derotations, its products
-    wrapped to int32, the LUT arctangent one float32 rounding a step, the
-    float64 scale."""
+def _wrap32(v):
+    return ((v + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int64)
+
+
+def _derot_np(ar, ai, sr, si):
+    """exact_fm.cu's derotate: int32 wrapping products, Q.28 -> Q.14."""
+    ar, ai = ar.astype(np.int64), ai.astype(np.int64)
+    sr, si = sr.astype(np.int64), si.astype(np.int64)
+    dr, di = _wrap32(ar * sr - ai * si), _wrap32(ar * si + ai * sr)
+    return (((dr >> 14) + ((dr >> 13) & 1)).astype(np.int16).astype(np.int64),
+            ((di >> 14) + ((di >> 13) & 1)).astype(np.int16).astype(np.int64))
+
+
+def _discriminate_np(cr, ci, pr, pim):
+    """exact_fm.cu's discriminate: the wrapped conjugate product, the LUT
+    arctangent one float32 rounding a step, the float64 scale."""
     f32 = np.float32
     table = atan2.ATAN_TABLE
     pi, hp = f32(np.pi), f32(np.pi / 2)
-
-    def wrap32(v):
-        return ((v + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int64)
-
-    def derot(ar, ai, s):
-        ar, ai = ar.astype(np.int64), ai.astype(np.int64)
-        sr, si = s[..., 0].astype(np.int64), s[..., 1].astype(np.int64)
-        dr, di = wrap32(ar * sr - ai * si), wrap32(ar * si + ai * sr)
-        return (((dr >> 14) + ((dr >> 13) & 1)).astype(np.int16),
-                ((di >> 14) + ((di >> 13) & 1)).astype(np.int16))
-
-    cr, ci = derot(a_re, a_im, seq)
-    pr = np.concatenate([last[None, :, 0], cr[:-1]]).astype(np.int64)
-    pim = np.concatenate([last[None, :, 1], ci[:-1]]).astype(np.int64)
-    s_re = wrap32(cr * pr + ci.astype(np.int64) * pim)
-    s_im = wrap32(ci * pr - cr.astype(np.int64) * pim)
+    s_re = _wrap32(cr * pr + ci * pim)
+    s_im = _wrap32(ci * pr - cr * pim)
     y, x = s_im.astype(f32), s_re.astype(f32)
     ya, xa = np.abs(y), np.abs(x)
     hi = np.maximum(ya, xa)
@@ -640,19 +639,145 @@ def _emulate_exact_fm(a_re, a_im, seq, last):
                   np.where(x >= 0, -hp + base, -hp - base))
     phi = np.where((ya == 0) & (xa == 0), f32(0), np.where(xa > ya, ax, ay))
     scaled = (phi.astype(np.float64) / np.pi * 16384.0).astype(f32)
-    pcm = np.trunc(scaled).astype(np.int16).T
-    return pcm, np.stack([cr, ci], -1), np.stack([cr[-1], ci[-1]],
-                                                 -1).astype(np.int32)
+    return np.trunc(scaled).astype(np.int16)
 
 
+def _groups(start, length, n_groups):
+    """exact_fm.cu's runs cut into groups of 8 flat indices on the 8-grid
+    from the base: for run ``q`` of ``start``/``length`` (arrays) and group
+    ``j < n_groups`` the clipped [lo, hi), the group's start and the run's
+    number, one entry a (run, group) with lo < hi."""
+    q = np.repeat(np.arange(start.size), n_groups)
+    g = (start[q] & ~7) + 8 * np.tile(np.arange(n_groups), start.size)
+    lo = np.maximum(g, start[q])
+    hi = np.minimum(g + 8, start[q] + length)
+    keep = lo < hi
+    return lo[keep], hi[keep], g[keep], q[keep]
+
+
+def _expand(lo, hi):
+    """Every index of the ranges [lo, hi), and the range of each."""
+    n = hi - lo
+    which = np.repeat(np.arange(lo.size), n)
+    return lo[which] + np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n), \
+        which
+
+
+def _emulate_exact_fm(a_re, a_im, seq, last, sms):
+    """exact_fm.cu in numpy, CTA by CTA as its grid walks the tiles: a CTA
+    (bx, by) takes outputs [bx*tk, +tk) of channels [by*cb, +cb)
+    (``fm.exact_fm_tile`` on a card of ``sms`` SMs), derotates its halo row (or takes ``last``),
+    then its samples in groups of 8 flat (k, c) indices on the 8-grid
+    (one run for the whole tile where it holds every channel, else one a
+    row) into ch and its shared tile, discriminates each sample after its
+    predecessor there, and writes the PCM through its transposed tile in
+    groups of 8 of [C, K]. Each output element must be written exactly
+    once. Returns (pcm, ch, last_out) and the number of groups that a tile
+    edge cut (written by scalars, not 16-byte vectors)."""
+    k, c_n = a_re.shape
+    tk, cb = fm.exact_fm_tile(k, c_n, sms)
+    pitch = tk + 2
+    are, aim = a_re.reshape(-1), a_im.reshape(-1)
+    sre, sim = seq[..., 0].reshape(-1), seq[..., 1].reshape(-1)
+    ch = np.zeros((k * c_n, 2), np.int16)
+    pcm = np.zeros(c_n * k, np.int16)
+    last_out = np.zeros((c_n, 2), np.int32)
+    n_ch, n_pcm, n_last = (np.zeros(k * c_n, int), np.zeros(c_n * k, int),
+                           np.zeros(c_n, int))
+    cut = 0
+    for bx in range(-(-k // tk)):
+        for by in range(-(-c_n // cb)):
+            k0, cb0 = bx * tk, by * cb
+            tka, cba = min(tk, k - k0), min(cb, c_n - cb0)
+            if k0 == 0:
+                halo = last[cb0:cb0 + cba].astype(np.int64)
+            else:
+                e = (k0 - 1) * c_n + cb0 + np.arange(cba)
+                halo = np.stack(_derot_np(are[e], aim[e], sre[e], sim[e]), -1)
+            flat = cba == c_n
+            nrun, run = (1, tka * c_n) if flat else (tka, cba)
+            on_grid = flat or ((c_n | cb) & 7) == 0
+            start = (k0 + np.arange(nrun)) * c_n + cb0
+            lo, hi, g, r = _groups(start, run, (run + (7 if on_grid else 14))
+                                   // 8)
+            cut += int(np.sum((lo != g) | (hi != g + 8)))
+            e, which = _expand(lo, hi)
+            loc = r[which] * run + (e - start[r[which]])
+            ch_s = np.zeros((tka * cba, 2), np.int64)
+            cr, ci = _derot_np(are[e], aim[e], sre[e], sim[e])
+            ch_s[loc] = np.stack([cr, ci], -1)
+            assert np.array_equal(np.sort(loc), np.arange(tka * cba))
+            ch[e] = np.stack([cr, ci], -1)
+            n_ch[e] += 1
+            lidx = np.arange(tka * cba)
+            rr, cc = lidx // cba, lidx % cba
+            prev = np.where((rr == 0)[:, None], halo[cc],
+                            ch_s[np.maximum(lidx - cba, 0)])
+            pcm_s = np.zeros(cb * pitch, np.int16)
+            pcm_s[cc * pitch + rr] = _discriminate_np(
+                ch_s[:, 0], ch_s[:, 1], prev[:, 0], prev[:, 1])
+            if k0 + tka == k:
+                last_out[cb0:cb0 + cba] = ch_s[(tka - 1) * cba:]
+                n_last[cb0:cb0 + cba] += 1
+            start = (cb0 + np.arange(cba)) * k + k0
+            lo, hi, g, rows = _groups(start, tka,
+                                      (tka + (7 if k % 8 == 0 else 14)) // 8)
+            cut += int(np.sum((lo != g) | (hi != g + 8)))
+            e, which = _expand(lo, hi)
+            pcm[e] = pcm_s[rows[which] * pitch + (e - start[rows[which]])]
+            n_pcm[e] += 1
+    assert (n_ch == 1).all() and (n_pcm == 1).all() and (n_last == 1).all()
+    return (pcm.reshape(c_n, k), ch.reshape(k, c_n, 2), last_out), cut
+
+
+# (channels, outputs): the pager's 8 at a multiple of the largest tile,
+# then a last tile cut short at 1 and 8 channels (every channel a CTA), 64
+# (the widest such bank), 232 (blocks of 32, the last of 8) and 100
+# (blocks off the 8-grid); each on a card of one SM (the largest tiles)
+# and of an H100's 132 (tiles cut for four CTAs an SM)
+K9_SHAPES = [(8, 4096), (1, 4109), (8, 4109), (64, 1037), (232, 296),
+             (100, 203)]
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("c,k", K9_SHAPES)
 @pytest.mark.parametrize("name", si.K9_CASES)
-def test_exact_fm_kernel_emulation_matches_plain(name):
-    a_re, a_im, seq, last = si.k9_inputs(name, 4_096, 8, seed=1)
-    got = _emulate_exact_fm(a_re, a_im, seq, last)
+def test_exact_fm_kernel_emulation_matches_plain(name, c, k, sms):
+    a_re, a_im, seq, last = si.k9_inputs(name, k, c, seed=1)
+    got, cut = _emulate_exact_fm(a_re, a_im, seq, last, sms)
     want = fm.exact_fm_plain(torch.from_numpy(a_re), torch.from_numpy(a_im),
                              torch.from_numpy(seq), torch.from_numpy(last))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.numpy())
+    tk, cb = fm.exact_fm_tile(k, c, sms)
+    if c % 8 == 0 and k % 8 == 0:
+        # every load and store a 16-byte vector but at a ragged last tile
+        assert cut <= (2 * cb if k % tk else 0)
+
+
+def test_exact_fm_tile_matches_kernel_source():
+    """K9's tile from ``fm.exact_fm_tile`` fits ``exact_fm.cu``'s shared
+    tile: its capacity constants are the Python module's, tk is a multiple
+    of 8, a block gives about CTAS_PER_SM CTAs an SM, and the
+    main paths' shapes get the tiles the design names."""
+    _, c = _cu_constants("exact_fm.cu")
+    assert (c["kTileSamples"], c["kMaxBlock"]) == (fm.TILE_SAMPLES,
+                                                   fm.MAX_BLOCK)
+    for c_n in (1, 8, 33, 64, 65, 100, 232, 256):
+        for k in (1, 9, 1000, 6552, 130_560, 417_792):
+            tk, cb = fm.exact_fm_tile(k, c_n, 132)
+            assert tk % 8 == 0 and tk * cb <= fm.TILE_SAMPLES
+            assert cb == (c_n if c_n <= fm.MAX_BLOCK else fm.WIDE_BLOCK)
+            # about CTAS_PER_SM CTAs an SM, but for rounding tk to 8
+            ctas = -(-k // tk) * -(-c_n // cb)
+            assert 2 * ctas >= min(fm.CTAS_PER_SM * 132,
+                                   -(-k // 8) * -(-c_n // cb))
+    # the exact pager block, multifm_rtlsdr_8ch's, the exact wide banks'
+    assert fm.exact_fm_tile(130_560, 8, 132) == (248, 8)
+    assert fm.exact_fm_tile(130_560, 8, 1) == (512, 8)
+    assert fm.exact_fm_tile(6_552, 8, 132) == (16, 8)
+    assert fm.exact_fm_tile(6_552, 64, 132) == (16, 64)
+    assert fm.exact_fm_tile(2_176, 232, 132) == (32, 32)
 
 
 # -- the pager pipeline through the new wrappers ------------------------------

@@ -54,7 +54,8 @@ SIGNATURES = {
                           _F, _F, _F, _F, _F, _P],
     "tsl_egress_gate": [_P, _I, _L, _P, _I, _P, _L, _P, _P, _I, _I, _I, _P],
     "tsl_dc_block_fast": [_P, _P, _P, _I, _L, _P, _P, _P, _L, _P],
-    "tsl_exact_fm": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
+    "tsl_exact_fm": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "tsl_nco_derotate": [_P, _P, _P, _I, _I, _I, _L, _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -316,27 +316,24 @@ class MultifmChain:
         Returns (state, pcm [C, K] int16, iq [C, K, 2] int16) as host
         arrays. The production tier takes the baseband from K5's raw
         epilogue (K1 never writes it), runs the plain discriminator on it
-        (the same PCM as K1's) and rotates it with the integer NCO."""
+        (the same PCM as K1's) and rotates it with the integer NCO into
+        sample units (K10, :func:`packed_fir.nco_derotate`)."""
         if self.exact:
             state, pending = self.step_exact_packed_begin(state, block)
             pcm, ch = self.step_exact_packed_end(pending, want_ch=True)
             return state, pcm, np.moveaxis(ch, 1, 0)
         c = self.nr_channels
         vals = self._block_values(block, "cs16")
-        p = exact_fir(self.taps, state.carry_vals, vals, "raw").to(
-            torch.float32)
+        raw = exact_fir(self.taps, state.carry_vals, vals, "raw")
+        p = raw.to(torch.float32)
         half = self.packed_plan.halfcols
         ar, ai = p[:, :half], p[:, half:]
         pcm, pr, pi_ = fm.fm_from_baseband(ar, ai, state.prev_r, state.prev_i,
                                            self.taps.omega_c)
-        yr, yi = packed_fir.nco_rotate(ar.reshape(-1, c), ai.reshape(-1, c),
-                                       self._omega_i32, state.out_index)
         # the accumulators carry the Q.14 tap scale; the reference dumps
         # the baseband rounded to sample units
-        scale = float(np.float32(1.0 / 16384.0))
-        iq = q14.to_int16(torch.stack([torch.trunc(yr * scale),
-                                       torch.trunc(yi * scale)], dim=-1))
-        iq = iq.transpose(0, 1)
+        iq = packed_fir.nco_derotate(raw, self._omega_i32, state.out_index,
+                                     "int16").transpose(0, 1)
         new_state = MultifmFastState(
             carry_vals=packed_fir.next_carry(state.carry_vals, vals,
                                              self.packed_plan.carry_vals),

@@ -6,7 +6,9 @@ instantiates only FM, ``multifm/demod.c:318``); the JAX package made it a
 chain of its own, and so does the port: wideband IQ -> the packed channel
 FIR bank (kernel K5's raw int32 sums,
 :func:`tsl_sdr_tpu_torch.ops.exact_fir.exact_fir`) -> integer-NCO
-derotation -> one 2nd-order Costas loop a channel (kernel K6,
+derotation and scaling (kernel K10,
+:func:`tsl_sdr_tpu_torch.ops.packed_fir.nco_derotate`) -> one 2nd-order
+Costas loop a channel (kernel K6,
 :func:`tsl_sdr_tpu_torch.ops.costas.costas_block_planes`).
 
 Output is phase-locked IQ per channel (int16, Q.14-scaled like the
@@ -25,10 +27,6 @@ from tsl_sdr_tpu_torch.ops import costas, packed_fir, q14
 from tsl_sdr_tpu_torch.ops.chain import ChainTaps
 from tsl_sdr_tpu_torch.ops.exact_fir import exact_fir
 from tsl_sdr_tpu_torch.runtime.native import costas_native
-
-# the packed accumulators carry the Q.14 tap scale; one 2^-14 takes them
-# to sample units, a second to the loop's Q.14-normalized units
-_SCALE = float(np.float32(1.0 / 16384.0))
 
 
 class CostasChainState(NamedTuple):
@@ -92,16 +90,14 @@ class CostasChannelizer:
             return block.reshape(-1).to(self.device)
         return upload(np.asarray(block, np.int16).reshape(-1), self.device)
 
-    def _baseband(self, carry_vals, vals, out_index: int):
-        """K5's raw sums of ``carry ++ vals`` as float32, derotated by the
-        integer NCO from ``out_index``: (yr, yi) ``[K, C]`` in the
-        accumulators' Q.14 scale."""
-        c = self.nr_channels
-        p = exact_fir(self.taps, carry_vals, vals, "raw").to(torch.float32)
-        half = self.packed_plan.halfcols
-        return packed_fir.nco_rotate(p[:, :half].reshape(-1, c),
-                                     p[:, half:].reshape(-1, c),
-                                     self._omega_i32, out_index)
+    def _baseband(self, carry_vals, vals, out_index: int, out: str):
+        """K5's raw sums of ``carry ++ vals`` derotated by the integer NCO
+        from ``out_index`` and scaled, in one launch of K10
+        (:func:`packed_fir.nco_derotate`): ``out="planes"``, the loop's
+        (yr, yi) ``[K, C]`` float32; ``out="int16"``, the baseband in
+        sample units, ``[K, C, 2]`` int16."""
+        p = exact_fir(self.taps, carry_vals, vals, "raw")
+        return packed_fir.nco_derotate(p, self._omega_i32, out_index, out)
 
     def step(self, state: CostasChainState, block, *, tier: str = "block"):
         """(state, block [N, 2] int16) -> (state, iq [C, N//D, 2] int16),
@@ -122,12 +118,11 @@ class CostasChannelizer:
         if vals.numel() % (2 * self.block_quantum):
             raise ValueError(f"block length {vals.numel() // 2} must be a "
                              f"multiple of {self.block_quantum}")
-        yr, yi = self._baseband(state.carry_vals, vals, state.out_index)
-        # sample units, then the Q.14-normalized units of the loop (the
-        # JAX package's two scalings, kept apart)
-        yr, yi = yr * _SCALE, yi * _SCALE
+        # the loop's Q.14-normalized units (the JAX package's two scalings)
+        yr, yi = self._baseband(state.carry_vals, vals, state.out_index,
+                                "planes")
         st2, o_re, o_im = costas.costas_block_planes(
-            self.params, state.costas, yr * _SCALE, yi * _SCALE)
+            self.params, state.costas, yr, yi)
         out = q14.to_int16(torch.trunc(torch.stack(
             [o_re.T * 16384.0, o_im.T * 16384.0], dim=-1)))   # [C, K, 2]
         new_state = CostasChainState(
@@ -139,9 +134,9 @@ class CostasChannelizer:
 
     def process_array_native(self, iq, block_size: int = 4_194_240):
         """Whole-capture path with the native serial PLL: the chain's
-        device does the sample-rate work (K5's raw sums and the integer-NCO
-        derotation, rounded to sample units as int16) block by block, then
-        the reference's per-sample loop runs in C a channel
+        device does the sample-rate work (K5's raw sums, then K10's
+        integer-NCO derotation rounded to sample units as int16) block by
+        block, then the reference's per-sample loop runs in C a channel
         (:func:`~tsl_sdr_tpu_torch.runtime.native.costas_native`). Returns
         int16 IQ [C, K, 2]."""
         prefix, blocks = capture_blocks(iq, block_size, self.block_quantum,
@@ -152,13 +147,10 @@ class CostasChannelizer:
         parts = []
         for blk in blocks:
             vals = self._values(blk)
-            yr, yi = self._baseband(carry, vals, k0)
-            parts.append(q14.to_int16(torch.stack(
-                [torch.trunc(yr * _SCALE), torch.trunc(yi * _SCALE)],
-                dim=-1)))                                      # [K, C, 2]
+            parts.append(self._baseband(carry, vals, k0, "int16"))
             carry = packed_fir.next_carry(carry, vals,
                                           self.packed_plan.carry_vals)
-            k0 += yr.shape[0]
+            k0 += parts[-1].shape[0]                           # [K, C, 2]
         rot = torch.cat(parts).cpu().numpy()
         c = self.nr_channels
         out = np.empty((c, rot.shape[0], 2), np.int16)

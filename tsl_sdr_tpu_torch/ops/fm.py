@@ -26,6 +26,16 @@ from tsl_sdr_tpu_torch.kernels import build
 from tsl_sdr_tpu_torch.ops import atan2, q14
 from tsl_sdr_tpu_torch.ops.atan2 import fast_atan2
 
+# csrc/exact_fm.cu's capacity: a CTA's tile of tk outputs for cb channels
+# holds TILE_SAMPLES at most, cb <= MAX_BLOCK
+TILE_SAMPLES = 4096
+MAX_BLOCK = 64
+WIDE_BLOCK = 32   # the channel block on banks wider than MAX_BLOCK
+# a CTA's phases run one after another, so K9 wants several CTAs an SM to
+# overlap them: on an H100, four beat two and eight at the exact pager
+# block, multifm_rtlsdr_8ch's and the 64- and 232-channel banks'
+CTAS_PER_SM = 4
+
 PI_F32 = float(np.float32(np.pi))
 HALF_PI_F32 = float(np.float32(np.pi / 2))
 # float32 values as Python floats: a Python scalar meets a float32 tensor
@@ -117,6 +127,21 @@ def fm_demod_exact(ch: torch.Tensor, last: torch.Tensor):
     return pcm, ch[..., -1, :].to(torch.int32)
 
 
+def exact_fm_tile(k: int, c_n: int, sm_count: int) -> tuple[int, int]:
+    """K9's tile for ``k`` outputs of a bank of ``c_n`` channels on a card
+    of ``sm_count`` SMs: (tk, cb), a CTA's outputs (a multiple of 8) and
+    channels. Every channel of a bank of up to MAX_BLOCK, blocks of
+    WIDE_BLOCK on wider ones; outputs for about CTAS_PER_SM CTAs an SM,
+    at most as many as fill TILE_SAMPLES."""
+    cb = c_n if c_n <= MAX_BLOCK else WIDE_BLOCK
+    tk = max(8, TILE_SAMPLES // cb // 8 * 8)
+    tiles = -(-CTAS_PER_SM * sm_count // -(-c_n // cb))   # along k
+    if -(-k // tk) < tiles:
+        # ceil(k / tiles) to the nearest multiple of 8
+        tk = max(8, (-(-k // tiles) + 4) // 8 * 8)
+    return tk, cb
+
+
 def exact_fm(a_re: torch.Tensor, a_im: torch.Tensor, seq: torch.Tensor,
              last: torch.Tensor):
     """The bit-exact tier's stage after K5 (kernel K9): K5's Q.14 sums
@@ -144,6 +169,8 @@ def exact_fm(a_re: torch.Tensor, a_im: torch.Tensor, seq: torch.Tensor,
             raise ValueError(f"{name} on {t.device}, a_re on {a_re.device}")
     if k == 0:
         raise ValueError("exact_fm needs at least one output")
+    if seq.data_ptr() % 4:   # the kernel reads each (re, im) as one word
+        raise ValueError("seq must be 4-byte aligned")
     dev = a_re.device
     pcm = torch.empty((c, k), dtype=torch.int16, device=dev)
     ch = torch.empty((k, c, 2), dtype=torch.int16, device=dev)
@@ -152,7 +179,8 @@ def exact_fm(a_re: torch.Tensor, a_im: torch.Tensor, seq: torch.Tensor,
     err = build.load().tsl_exact_fm(
         a_re.data_ptr(), a_im.data_ptr(), seq.data_ptr(), last.data_ptr(),
         atan2._table(dev).data_ptr(), pcm.data_ptr(), ch.data_ptr(),
-        last2.data_ptr(), k, c, stream)
+        last2.data_ptr(), k, c,
+        *exact_fm_tile(k, c, build.sm_count(a_re.get_device())), stream)
     build.check(err, "tsl_exact_fm")
     exact_fm.launches += 1
     return pcm, ch, last2

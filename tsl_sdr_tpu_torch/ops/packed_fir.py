@@ -5,7 +5,8 @@ numpy because the JAX module imports jax at load), ``:198-318`` (the
 phase-grouped windowed form: its plan, its choice and its product),
 ``:321-403`` (the streaming step), ``:406-464`` (its bit-exact tier, the
 plain version of kernel K5, :mod:`tsl_sdr_tpu_torch.ops.exact_fir`) and
-``:467-487`` (the integer NCO of the fast tier's debug tap). The interleaved int16 stream is cut into rows of
+``:467-487`` (the integer NCO, with the scalings around it as kernel K10,
+:func:`nco_derotate`). The interleaved int16 stream is cut into rows of
 ``ROW = lcm(2*D, 128)`` values; each row yields ``OPR = ROW/(2*D)``
 decimated outputs per channel, and output row ``r`` is
 
@@ -26,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tsl_sdr_tpu_torch.kernels import build
 from tsl_sdr_tpu_torch.ops import q14
 from tsl_sdr_tpu_torch.ops.fir import design_channel_taps
 from tsl_sdr_tpu_torch.utils.diag import dump_shifted_lpf
@@ -374,6 +376,78 @@ def nco_rotate(ar: torch.Tensor, ai: torch.Tensor, omega_i32: torch.Tensor,
     rr = torch.cos(th)
     ri = torch.sin(th)
     return ar * rr - ai * ri, ar * ri + ai * rr
+
+
+# the raw sums carry the Q.14 tap scale; one 2^-14 takes them to sample
+# units, a second to the Costas loop's Q.14-normalized units
+_SCALE = float(np.float32(1.0 / 16384.0))
+_DTHETA = float(np.float32(2.0 * np.pi / 2.0**32))
+NCO_OUT = {"planes": 0, "int16": 1}
+
+
+def nco_derotate(p: torch.Tensor, omega_i32: torch.Tensor, k0: int,
+                 out: str):
+    """K5's raw sums ``p`` [rows, 2*halfcols] int32 (``exact_fir(...,
+    "raw")``) as float32, rotated by the integer NCO from output ``k0``
+    (:func:`nco_rotate`) and scaled (kernel K10). ``out="planes"``: (yr,
+    yi) [K, C] float32, each times 2^-14 twice (the Costas loop's input);
+    ``out="int16"``: ``trunc(y * 2^-14)`` clamped to int16, [K, C, 2] (the
+    baseband in sample units). On a CUDA tensor it launches
+    ``csrc/nco.cu``; on a CPU tensor it runs :func:`nco_derotate_plain`."""
+    if out not in NCO_OUT:
+        raise ValueError(f"out must be 'planes' or 'int16', not {out!r}")
+    if p.device.type == "cpu":
+        return nco_derotate_plain(p, omega_i32, k0, out)
+    if p.device.type != "cuda":
+        raise ValueError(f"nco_derotate runs on cuda or cpu, not {p.device}")
+    c = omega_i32.numel()
+    if p.dtype != torch.int32 or p.dim() != 2 or p.shape[1] % (2 * c):
+        raise ValueError(f"p: expected int32 [rows, 2 * a multiple of {c}], "
+                         f"got {p.dtype}{list(p.shape)}")
+    if omega_i32.dtype != torch.int32 or omega_i32.shape != (c,):
+        raise ValueError(f"omega_i32: expected int32 [C], got "
+                         f"{omega_i32.dtype}{list(omega_i32.shape)}")
+    for name, t in (("p", p), ("omega_i32", omega_i32)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != p.device:
+            raise ValueError(f"{name} on {t.device}, p on {p.device}")
+    rows, half = p.shape[0], p.shape[1] // 2
+    if rows * half == 0:
+        raise ValueError("nco_derotate needs at least one output")
+    k = rows * half // c
+    if out == "planes":
+        res = torch.empty((2, k, c), dtype=torch.float32, device=p.device)
+    else:
+        res = torch.empty((k, c, 2), dtype=torch.int16, device=p.device)
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    err = build.load().tsl_nco_derotate(
+        p.data_ptr(), omega_i32.data_ptr(), res.data_ptr(), rows, half, c,
+        k0, NCO_OUT[out], _DTHETA, stream)
+    build.check(err, "tsl_nco_derotate")
+    nco_derotate.launches += 1
+    return (res[0], res[1]) if out == "planes" else res
+
+
+nco_derotate.launches = 0
+
+
+def nco_derotate_plain(p: torch.Tensor, omega_i32: torch.Tensor, k0: int,
+                       out: str):
+    """Plain torch version of :func:`nco_derotate`, on any device: the
+    int32 -> float32 cast, :func:`nco_rotate`, then the scalings (two
+    roundings) or the truncation and :func:`q14.to_int16`."""
+    c = omega_i32.numel()
+    half = p.shape[1] // 2
+    pf = p.to(torch.float32)
+    yr, yi = nco_rotate(pf[:, :half].reshape(-1, c),
+                        pf[:, half:].reshape(-1, c), omega_i32, k0)
+    if out == "planes":
+        return yr * _SCALE * _SCALE, yi * _SCALE * _SCALE
+    if out == "int16":
+        return q14.to_int16(torch.stack(
+            [torch.trunc(yr * _SCALE), torch.trunc(yi * _SCALE)], dim=-1))
+    raise ValueError(f"out must be 'planes' or 'int16', not {out!r}")
 
 
 def next_carry(carry_vals: torch.Tensor, block: torch.Tensor,
