@@ -208,7 +208,24 @@ row), and the block's last stages (K7, K8, K9) and the Costas chain's NCO
    past 2^32: the values that differ and by how many ulp (0 required);
    its device, call, plain and bound ms in each mode; a Costas block's
    kernels and copies (torch.profiler) with K10 and with the plain NCO,
-   and the block's wall both ways in turns.
+   and the block's wall both ways in turns;
+23. the K1 lab (``bench/torch_k1_lab.py``: patched copies of K1's tile
+   and bank bodies and the probes of ``bench/k1_probe.cu``, built from the
+   checkout, one nvcc each, side by side): ``carryful``, ``ring2``,
+   ``ring4``, ``streams2full`` and ``streams4full`` equal K1's plain
+   version (PCM and FM carry) at the pager block on random input and on a
+   ragged full-scale block, with the deployment's taps and with taps of
+   +-32767; ``copy``, ``split``, ``fir`` and ``carryfir`` equal their
+   plain versions in the tile body at the pager block and the JAX labs'
+   8-channel block, ``copy``, ``split`` and ``fir`` in the bank body at
+   their 64-channel block, each also 7 rows short; then every variant of
+   each body with a defined output (``two``, ``carry``, ``streams*``,
+   ``par*``, ``ring*``, ``full`` at their tiles) and every probe (lab 3's
+   copies, ``Tensor.copy_``, lab 5's depths) equal to its plain version
+   at all three shapes, each output filled with a sentinel before its
+   run, the timing-only cuts launched; the variants checked on a line of
+   their own, then one device time a variant and probe. The long run in
+   turns is ``python3 bench/torch_k1_lab.py turns``.
 
 Each path of phases 4, 8, 9, 10, 14, 15, 16, 17, 18, 19 and 20 and each
 run of phase 12 runs with the
@@ -519,26 +536,10 @@ def make_capture(pager, block_size: int):
 
 
 def adversarial_chain_taps(taps):
-    """``taps`` (a ChainTaps) rebuilt with every tap its layout may hold
-    set to +-32767 (random signs), in the same form: against input of
-    -32768 it drives every byte product to its extreme and the int32 sums
-    through many wraps. Chunked taps get the whole [U, 2*HC] matrix;
-    grouped ones keep the layout's zeros, which the grouped form leaves
-    out."""
-    import numpy as np
+    """``testing/adversarial.py`` ``chain_taps``: every tap +-32767."""
+    from tsl_sdr_tpu_torch.testing import adversarial
 
-    from tsl_sdr_tpu_torch.ops import chain as k1
-    from tsl_sdr_tpu_torch.ops import packed_fir
-
-    plan = taps.plan
-    support = packed_fir.tap_support(plan)
-    rng = np.random.default_rng(17)
-    w = np.where(rng.random(support.shape) < 0.5, -32767, 32767)
-    if taps.grouped:
-        w = np.where(support, w, 0)
-    return k1.ChainTaps(packed_fir.with_taps_i16(plan, w.astype(np.int16)),
-                        taps.omega_c.cpu().numpy(), device=taps.w_hi.device,
-                        grouped=taps.grouped)
+    return adversarial.chain_taps(taps)
 
 
 def check_chain(pipe, iq, device, where: str = "pager"):
@@ -4048,8 +4049,52 @@ def nco_phase(device) -> dict:
     return res
 
 
+# -- phase 23: the K1 lab (bench/torch_k1_lab.py), checked and timed once ----
+
+def k1_lab():
+    """``bench/torch_k1_lab.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_k1_lab", HERE / "bench" / "torch_k1_lab.py")
+    lab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lab)
+    return lab
+
+
+def k1_lab_phase(device) -> dict:
+    """Phase 23: the K1 lab's patched copies of K1's two bodies and its
+    probes, built from the checkout; the variants that compute K1 equal
+    its plain version at the pager block on random and adversarial input;
+    every variant and probe with a defined output equal to its plain
+    version at its shapes (the copy, split and FIR cuts and carryfir also
+    on a ragged block); one device time a variant and probe."""
+    lab = k1_lab()
+    t0 = time.perf_counter()
+    libs, logs = lab.build_all()
+    log(f"K1 lab: {len(libs)} libraries built in "
+        f"{time.perf_counter() - t0:.1f} s into {lab.OUT}")
+    for key in lab.VARIANTS:
+        log(f"K1 lab {key[0]} body {key[1]}: {lab.registers(logs[key])}")
+    checked = lab.check_exact(libs, device, log)
+    shapes = {name: lab.make_shape(name, device) for name in lab.SHAPES}
+    checked += lab.check_cuts(libs, shapes, log)
+    es = lab.entries(libs, shapes, device=device)
+    checked += [f"{e.shape} {e.name} ({e.note})" for e in es]
+    log(f"K1 lab variants and probes checked against their plain versions "
+        f"({len(checked)}): {'; '.join(checked)}")
+    times = {}
+    for e in es:
+        ms, how = lab.device_ms(e.call, lab.reps_for(e))
+        times[f"{e.shape} | {e.name}"] = ms
+        log(f"K1 lab {e.shape} | {e.name}: {ms:.5f} ms on the device "
+            f"({how}; {e.note})")
+    del shapes, es
+    return {"checked": checked, "ms": times}
+
+
 def smoke(device: str) -> dict:
-    """Phases 2-22 on ``device``; returns the kernels' summary."""
+    """Phases 2-23 on ``device``; returns the kernels' summary."""
     import torch
 
     from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
@@ -4126,6 +4171,7 @@ def smoke(device: str) -> dict:
     front = front_end(device, totals)
     costas = costas_phase(device, totals)
     nco = nco_phase(device)
+    k1lab = k1_lab_phase(device)
     k3_f32 = k3_times["pipeline 5/12"]
     k3_q14 = k3_times["192/125 decoder step"]
     return {
@@ -4141,6 +4187,7 @@ def smoke(device: str) -> dict:
         "surface": surface,
         "last": last,
         "nco": nco,
+        "k1_lab": k1lab,
         "kernels": [
             {"name": "chain_fm", "route": "cuda",
              "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
@@ -4311,6 +4358,9 @@ def main() -> int:
         f"{json.dumps(nco['differ'])}")
     log(f"{card} | Costas block with K10 and with the plain NCO: "
         f"{json.dumps(nco['block'])}")
+    log(f"{card} | K1 lab variants checked: "
+        f"{len(summary['k1_lab']['checked'])}; device ms a variant: "
+        f"{json.dumps(summary['k1_lab']['ms'])}")
     for kernel in ("k3", "k4"):
         for name, k in summary[kernel].items():
             log(f"{card} | {kernel.upper()} {name}: {json.dumps(k)}")

@@ -1206,3 +1206,82 @@ def test_nco_and_exact_fm_wrappers_raise_on_bad_input(cuda):
     seq = torch.zeros(8 * 2 * 2 + 1, dtype=torch.int16, device=cuda)
     with pytest.raises(ValueError, match="4-byte"):
         fm.exact_fm(z, z, seq[1:].view(8, 2, 2), last)
+
+
+# -- the K1 lab (bench/torch_k1_lab.py): patched copies of K1's bodies -------
+
+def _k1_lab():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_k1_lab", Path(__file__).resolve().parents[1] / "bench"
+        / "torch_k1_lab.py")
+    lab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lab)
+    return lab
+
+
+k1_lab = _k1_lab()
+# the lab's variants with a defined output (the rest are timing-only)
+K1_LAB_EXACT = sorted(k for k, v in k1_lab.VARIANTS.items()
+                      if v.out != "timing" and k[1] != "two")
+
+
+@pytest.fixture(scope="module")
+def k1_lab_libs():
+    if not torch.cuda.is_available():
+        pytest.skip("CUDA kernel: needs an NVIDIA GPU (no CPU mode)")
+    return k1_lab.build_all(K1_LAB_EXACT)[0]
+
+
+def _k1_lab_shape(body, full_scale):
+    """A small block on the card: the pager's tile body (2 tiles and a
+    ragged one), or the bank body at 16 channels of the JAX labs'
+    settings (3 tiles, the last ragged)."""
+    if body == "tile":
+        return k1_lab.make_shape("pager", "cuda", seed=3,
+                                 samples=(2 * 255 + 37) * 64,
+                                 full_scale=full_scale)
+    chain = k1_lab.lab_chain(16, "cuda")
+    plan = chain.taps.plan
+    x = _iq(plan.carry_len + (2 * 63 + 20) * plan.row // 2, 4)
+    if full_scale:
+        x[-500:] = -32768
+    vals = torch.from_numpy(x.reshape(-1).copy()).cuda()
+    prev = torch.from_numpy(np.random.default_rng(5).normal(
+        scale=1e5, size=(2, 16)).astype(np.float32)).cuda()
+    return k1_lab.Shape("16 channels", chain.taps, vals[:plan.carry_vals],
+                        vals[plan.carry_vals:], prev)
+
+
+@pytest.mark.parametrize("key", K1_LAB_EXACT, ids=" ".join)
+@pytest.mark.parametrize("full_scale", [False, True])
+def test_k1_lab_variant_matches_plain(cuda, k1_lab_libs, key, full_scale):
+    """Each lab variant with a defined output (K1's PCM and carry: carryful,
+    ring2, ring4, streams*full, par*; the copy, split and FIR cuts and
+    carryfir) EXACTLY equal to its plain version at one small shape."""
+    shape = _k1_lab_shape(key[0], full_scale)
+    v = k1_lab.VARIANTS[key]
+    tr = k1_lab.launch_tile(v, shape.taps)[0] if key[0] == "tile" else None
+    assert k1_lab.check(k1_lab_libs[key], v, shape, tr) == 0
+
+
+def test_k1_lab_check_sees_a_skipped_tile(cuda, k1_lab_libs):
+    """The lab's check fails a ring2 build that never computes tile 1, run
+    right after the true ring2 filled a same-sized output correctly: each
+    output is filled with a sentinel first, so output a variant never
+    writes cannot pass on what the allocator hands back."""
+    key = ("tile", "ring2")
+    v = k1_lab.VARIANTS[key]
+    anchor = ("    chain_tile(t, t > t0, smem + (size_t)((t - t0) % LAB_NBUF)"
+              " * slot,\n")
+    skip = v._replace(cuts=v.cuts + (k1_lab.Cut(
+        k1_lab.T, anchor, "    if (t != 1)   // tile 1 is never computed\n"
+        + anchor),))
+    lib = k1_lab.build_all([key], {key: skip})[0][key]
+    shape = _k1_lab_shape("tile", False)
+    tr = k1_lab.launch_tile(v, shape.taps)[0]
+    rows = shape.block.numel() // shape.taps.plan.row
+    assert rows > 2 * tr   # tile 1 is a whole tile, not the last
+    assert k1_lab.check(k1_lab_libs[key], v, shape, tr) == 0
+    assert k1_lab.check(lib, skip, shape, tr) > 0

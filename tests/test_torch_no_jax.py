@@ -318,12 +318,14 @@ def test_surface_runs_without_jax():
 
 def test_no_port_file_imports_jax():
     """No ``import``/``from`` of jax, jaxlib, ml_dtypes or ``tsl_sdr_tpu``
-    (``tsl_sdr_tpu_torch`` is the port itself)."""
+    (``tsl_sdr_tpu_torch`` is the port itself) in the port, ``chip_smoke.py``
+    or the port's labs (``bench/torch_*.py``)."""
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|tsl_sdr_tpu)(\.|\s|$)",
         re.MULTILINE)
     files = sorted((ROOT / "tsl_sdr_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "bench").glob("torch_*.py"))
     assert len(files) > 10
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {f"tsl_sdr_tpu_torch/parallel/{m}.py" for m in (
@@ -335,6 +337,7 @@ def test_no_port_file_imports_jax():
             "tsl_sdr_tpu_torch/runtime/native.py",
             "tsl_sdr_tpu_torch/utils/diag.py",
             "tsl_sdr_tpu_torch/parallel/_mh_scaling_worker.py",
-            "tsl_sdr_tpu_torch/cli/design_filter.py"} <= names
+            "tsl_sdr_tpu_torch/cli/design_filter.py",
+            "bench/torch_k1_lab.py", "bench/torch_k9_lab.py"} <= names
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
