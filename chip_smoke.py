@@ -14,8 +14,8 @@ reference's resampler settings, the pipeline at decimation 50, the
 bit-exact tier, ``multifm-torch`` at ``etc/multifm_rtlsdr_8ch.json``,
 wide channel banks (BENCH_SUITE's 64 and 256 channels, the Airspy band's
 232), the Costas coherent chain (BENCH_SUITE's costas_chain_device
-row), and the block's last stages (K7, K8, K9) and the Costas chain's NCO
-(K10):
+row), the block's last stages (K7, K8, K9) and the Costas chain's NCO
+(K10), and the pipeline and deployment soaks:
 
 1. the card's name and power limit; the kernels' build (nvcc) and the
    decoders' native state machines (g++);
@@ -225,10 +225,27 @@ row), and the block's last stages (K7, K8, K9) and the Costas chain's NCO
    at all three shapes, each output filled with a sentinel before its
    run, the timing-only cuts launched; the variants checked on a line of
    their own, then one device time a variant and probe. The long run in
-   turns is ``python3 bench/torch_k1_lab.py turns``.
+   turns is ``python3 bench/torch_k1_lab.py turns``;
+24. the soaks (``bench/torch_soak_pipeline.py``,
+   ``bench/torch_soak_deployment.py``): (a) the pipeline soak's seeds 0-7
+   on the fused engine and 0-3 on the streaming exact engine (random
+   POCSAG/FLEX/AIS mixes at decimation 24, where POCSAG resamples 3/4 and
+   FLEX 5/16 on K3 and AIS 15/16 on K4): each seed's engine equal to the
+   card's host path and to the same seed run with every kernel swapped
+   for its plain version, every seed decoding; then K3 and K4 against
+   their plain versions, exactly, in both epilogues, on the inputs of the
+   first call at each shape the soak's pipelines gave them; (b) the
+   deployment soak for 1.5 minutes, every leg started with jax and the
+   JAX package blocked: a warm-up leg, ``pipeline-torch --follow`` on a
+   FIFO paced at 1.2288 Msps (8 POCSAG channels, a burst a second), a
+   SIGTERM at half and a warm ``--standby`` taking over from the
+   checkpoint: the events in order, both legs warmed, the writer's rate
+   at least 99 % of 1.2288 Msps, no burst lost outside the outage, and
+   the latency's p90 within (inflight depth + 2) blocks; its result
+   printed as JSON. The long soaks are the scripts themselves.
 
-Each path of phases 4, 8, 9, 10, 14, 15, 16, 17, 18, 19 and 20 and each
-run of phase 12 runs with the
+Each path of phases 4, 8, 9, 10, 14, 15, 16, 17, 18, 19, 20 and 24 (a)
+and each run of phase 12 runs with the
 kernels' launch counts set to 0 just before it and read just after; a
 kernel of the path that never launched fails the run. jax, jaxlib and
 the JAX package (``tsl_sdr_tpu``) are made unimportable first, and none
@@ -3496,16 +3513,22 @@ def multifm_dumps(device, tmp: Path, totals: dict) -> dict:
     return res
 
 
-def run_blocked(argv, timeout: float = 300.0):
-    """``python -m <argv>`` with jax and the JAX package made unimportable
-    first: (returncode, stdout, stderr)."""
+def blocked_cmd(argv) -> list:
+    """The command line of ``python -m <argv>`` with jax and the JAX
+    package made unimportable first."""
     code = ("import runpy, sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in BLOCKED)
             + f"sys.path.insert(0, {str(HERE)!r})\n"
             "sys.argv = sys.argv[1:]\n"
             "runpy.run_module(sys.argv[0], run_name='__main__')\n")
-    res = subprocess.run([sys.executable, "-c", code, *argv], cwd=HERE,
-                         capture_output=True, text=True, timeout=timeout)
+    return [sys.executable, "-c", code, *argv]
+
+
+def run_blocked(argv, timeout: float = 300.0):
+    """``python -m <argv>`` with jax and the JAX package made unimportable
+    first: (returncode, stdout, stderr)."""
+    res = subprocess.run(blocked_cmd(argv), cwd=HERE, capture_output=True,
+                         text=True, timeout=timeout)
     return res.returncode, res.stdout, res.stderr
 
 
@@ -4051,15 +4074,15 @@ def nco_phase(device) -> dict:
 
 # -- phase 23: the K1 lab (bench/torch_k1_lab.py), checked and timed once ----
 
-def k1_lab():
-    """``bench/torch_k1_lab.py`` as a module."""
+def bench_module(name: str):
+    """``bench/<name>.py`` as a module."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "torch_k1_lab", HERE / "bench" / "torch_k1_lab.py")
-    lab = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(lab)
-    return lab
+        name, HERE / "bench" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def k1_lab_phase(device) -> dict:
@@ -4069,7 +4092,7 @@ def k1_lab_phase(device) -> dict:
     every variant and probe with a defined output equal to its plain
     version at its shapes (the copy, split and FIR cuts and carryfir also
     on a ragged block); one device time a variant and probe."""
-    lab = k1_lab()
+    lab = bench_module("torch_k1_lab")
     t0 = time.perf_counter()
     libs, logs = lab.build_all()
     log(f"K1 lab: {len(libs)} libraries built in "
@@ -4093,8 +4116,180 @@ def k1_lab_phase(device) -> dict:
     return {"checked": checked, "ms": times}
 
 
+SOAK_SEEDS = {"fused": 8, "exact": 4}
+SOAK_KERNELS = {"fused": ("chain_fm", "row_resample", "frame_resample",
+                          "egress_gate"),
+                "exact": ("exact_fir", "exact_fm", "row_resample_q14",
+                          "frame_resample")}
+# the ratio groups decimation 24 gives: POCSAG 3/4 and FLEX 5/16 packed-row
+# (K3), AIS 15/16 frame form (K4)
+SOAK_RATIOS = {("row_resample", "3/4"), ("row_resample", "5/16"),
+               ("frame_resample", "15/16")}
+SOAK_MINUTES = 1.5
+
+
+@contextlib.contextmanager
+def recording_resamplers(seen: dict):
+    """K3 and K4 as the pipelines call them (the engine's
+    ``polyphase.resample_step``, ``ResamplerChain`` on the host and exact
+    paths), each first call of a (kernel, ratio, shapes, epilogue) kept in
+    ``seen`` with a copy of its inputs; the kernels still run."""
+    from fractions import Fraction
+
+    from tsl_sdr_tpu_torch.models import resampler
+    from tsl_sdr_tpu_torch.ops import frame_resampler as k4
+    from tsl_sdr_tpu_torch.ops import polyphase
+    from tsl_sdr_tpu_torch.ops import row_resampler as k3
+
+    def recorder(name, fn):
+        def call(carry, block, taps, **kw):
+            ratio = (Fraction(taps.w0.shape[1], kw["row_in"])
+                     if name == "row_resample"
+                     else Fraction(taps.w_frames.shape[1], taps.d_rep))
+            key = (name, str(ratio), tuple(carry.shape), tuple(block.shape),
+                   kw.get("row_in"), kw.get("frames"), kw.get("out", "f32"))
+            if key not in seen:
+                seen[key] = (carry.clone(), block.clone(), taps, dict(kw))
+            return fn(carry, block, taps, **kw)
+        return call
+
+    real = {"row_resample": k3.row_resample,
+            "frame_resample": k4.frame_resample}
+    for mod in (polyphase, resampler):
+        for name, fn in real.items():
+            setattr(mod, name, recorder(name, fn))
+    try:
+        yield
+    finally:
+        for mod in (polyphase, resampler):
+            for name, fn in real.items():
+                setattr(mod, name, fn)
+
+
+def check_soak_resamplers(seen: dict) -> list:
+    """K3 and K4 against their plain versions, exactly, on the inputs and
+    at the shapes the soak's pipelines gave them, in both epilogues."""
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import frame_resampler as k4
+    from tsl_sdr_tpu_torch.ops import row_resampler as k3
+
+    fns = {"row_resample": (k3.row_resample, k3.row_resample_plain),
+           "frame_resample": (k4.frame_resample, k4.frame_resample_plain)}
+    checked = []
+    for key, (carry, block, taps, kw) in seen.items():
+        name, ratio = key[:2]
+        kernel, plain = fns[name]
+        label = (f"K3 {ratio}, row_in {kw['row_in']}" if "row_in" in kw
+                 else f"K4 {ratio}, {kw['frames']} frames")
+        for out in ("f32", "q14"):
+            args = dict(kw, out=out)
+            got = kernel(carry, block, taps, **args)
+            ref = plain(carry, block, taps, **args)
+            err = max_err(got, ref)
+            log(f"{label} vs plain (the soak called it "
+                f"{kw.get('out', 'f32')}): carry {list(carry.shape)} block "
+                f"{list(block.shape)} -> {list(got.shape)} {out}: "
+                f"max|diff|={err}")
+            require(torch.equal(got, ref),
+                    f"{name} {ratio} {list(block.shape)} ({out}) differs")
+        checked.append((name, ratio))
+    missing = SOAK_RATIOS - set(checked)
+    require(not missing, f"the soak never ran {sorted(missing)}")
+    return checked
+
+
+def pipeline_soak(device, totals: dict) -> dict:
+    """(a) ``bench/torch_soak_pipeline.py`` on the card: seeds 0-7 fused
+    and 0-3 ``--exact``, each seed's engine equal to the card's host path
+    and to the same seed run with every kernel swapped for its plain
+    version, every seed decoding; then K3 and K4 checked on the inputs the
+    pipelines gave them."""
+    soak = bench_module("torch_soak_pipeline")
+    seen = {}
+    res = {}
+    for tier, n in SOAK_SEEDS.items():
+        exact = tier == "exact"
+
+        def card(exact=exact, n=n):
+            runs = []
+            with recording_resamplers(seen):
+                for seed in range(n):
+                    t0 = time.perf_counter()
+                    got, want = soak.run_seed(seed, exact=exact,
+                                              device=device)
+                    runs.append((got, want, time.perf_counter() - t0))
+            return runs
+
+        runs = on_path(f"the pipeline soak ({tier}, seeds 0-{n - 1})",
+                       SOAK_KERNELS[tier], card, totals)
+        walls = []
+        for seed, (got, want, wall) in enumerate(runs):
+            t0 = time.perf_counter()
+            with plain_kernels():
+                got_p, want_p = soak.run_seed(seed, exact=exact,
+                                              device=device)
+            plain_wall = time.perf_counter() - t0
+            n_msgs = sum(map(len, got))
+            log(f"(a) {tier} seed {seed}: {soak.channels(seed)[0]} -> "
+                f"engine {n_msgs}, host {sum(map(len, want))}, plain "
+                f"{sum(map(len, got_p))} messages; wall {wall:.3f} s (plain "
+                f"{plain_wall:.3f} s)")
+            require(n_msgs > 0, f"{tier} seed {seed} decoded nothing")
+            require(got == want, f"{tier} seed {seed}: engine {got}, host "
+                                 f"path {want}")
+            require(got == got_p == want_p,
+                    f"{tier} seed {seed}: card {got}, plain-version run "
+                    f"{got_p} (host {want_p})")
+            walls.append(wall)
+        res[tier] = {"seeds": n, "walls_s": walls}
+    checked = check_soak_resamplers(seen)
+    log(f"(a) K3 and K4 checked at {len(checked)} soak shapes: "
+        f"{sorted(set(checked))}")
+    res["checked"] = len(checked)
+    return res
+
+
+def deployment_soak(device, tmp: Path) -> dict:
+    """(b) ``bench/torch_soak_deployment.py`` for SOAK_MINUTES, the kill at
+    half, every leg started with jax and the JAX package blocked: the
+    standby takes over from the checkpoint, the writer keeps its rate,
+    no burst is lost outside the outage and the latency's p90 is within
+    (inflight depth + 2) blocks."""
+    dep = bench_module("torch_soak_deployment")
+    t0 = time.perf_counter()
+    r = dep.run(SOAK_MINUTES, 0.5, tmp / "soak_deploy", device,
+                launcher=blocked_cmd)
+    log(f"(b) deployment soak in {time.perf_counter() - t0:.1f} s: "
+        f"{json.dumps(r)}")
+    want = ["warmup", "start", "sigterm", "checkpointed", "resumed"]
+    require(r["events"] == want, f"soak events {r['events']}")
+    require(r["kill_resume_ok"] and not r["takeover_fresh"],
+            f"kill/resume: ok {r['kill_resume_ok']}, fresh takeover "
+            f"{r['takeover_fresh']}")
+    require(len(r["leg_device_warm_s"]) == 2,
+            f"legs that warmed: {r['leg_device_warm_s']}")
+    require(r["achieved_msps"] >= 0.99 * dep.FS / 1e6,
+            f"achieved {r['achieved_msps']} of {dep.FS / 1e6} Msps")
+    require(r["bursts_lost_outside"] == 0,
+            f"{r['bursts_lost_outside']} bursts lost outside the outage")
+    limit = dep.INFLIGHT_DEPTH + 2
+    p90 = r["latency_block_times"]["p90"]
+    require(p90 is not None and p90 <= limit,
+            f"latency p90 {p90} block times, limit {limit}")
+    return r
+
+
+def soak_phase(device, totals: dict) -> dict:
+    """Phase 24: both soaks on the card."""
+    res = pipeline_soak(device, totals)
+    with tempfile.TemporaryDirectory() as tmp:
+        res["deployment"] = deployment_soak(device, Path(tmp))
+    return res
+
+
 def smoke(device: str) -> dict:
-    """Phases 2-23 on ``device``; returns the kernels' summary."""
+    """Phases 2-24 on ``device``; returns the kernels' summary."""
     import torch
 
     from tsl_sdr_tpu_torch.models.pipeline import ChannelSpec, ReceivePipeline
@@ -4172,6 +4367,7 @@ def smoke(device: str) -> dict:
     costas = costas_phase(device, totals)
     nco = nco_phase(device)
     k1lab = k1_lab_phase(device)
+    soaks = soak_phase(device, totals)
     k3_f32 = k3_times["pipeline 5/12"]
     k3_q14 = k3_times["192/125 decoder step"]
     return {
@@ -4188,6 +4384,7 @@ def smoke(device: str) -> dict:
         "last": last,
         "nco": nco,
         "k1_lab": k1lab,
+        "soaks": soaks,
         "kernels": [
             {"name": "chain_fm", "route": "cuda",
              "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
@@ -4361,6 +4558,19 @@ def main() -> int:
     log(f"{card} | K1 lab variants checked: "
         f"{len(summary['k1_lab']['checked'])}; device ms a variant: "
         f"{json.dumps(summary['k1_lab']['ms'])}")
+    soaks = summary["soaks"]
+    for tier in SOAK_SEEDS:
+        log(f"{card} | pipeline soak {tier}: {soaks[tier]['seeds']} seeds "
+            f"OK, wall s a seed {json.dumps(soaks[tier]['walls_s'])}")
+    dep = soaks["deployment"]
+    log(f"{card} | deployment soak ({dep['minutes']} min): offered "
+        f"{dep['offered_msps']} Msps, achieved {dep['achieved_msps']}; "
+        f"outage {dep['outage_s']} s; bursts {dep['bursts_decoded']} of "
+        f"{dep['bursts_written']}, lost in the outage "
+        f"{dep['bursts_lost_in_outage']}, outside "
+        f"{dep['bursts_lost_outside']}; latency s "
+        f"{json.dumps(dep['latency_s'])}, block times "
+        f"{json.dumps(dep['latency_block_times'])}")
     for kernel in ("k3", "k4"):
         for name, k in summary[kernel].items():
             log(f"{card} | {kernel.upper()} {name}: {json.dumps(k)}")

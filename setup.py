@@ -5,6 +5,8 @@ Equivalent of the reference's build-time version header + package stamp
 ``:110-125`` CPack metadata). A wheel/sdist built from a checkout carries
 ``tsl_sdr_tpu/_version_stamp.py`` with the exact commit; an installed
 package reports it without needing git (see ``tsl_sdr_tpu/_version.py``).
+The PyTorch port, ``tsl_sdr_tpu_torch``, gets the same stamp in its own
+``_version_stamp.py`` (see ``tsl_sdr_tpu_torch/_version.py``).
 """
 
 import os
@@ -14,6 +16,7 @@ from setuptools.command.build_py import build_py as _build_py
 from setuptools.command.sdist import sdist as _sdist
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+STAMPED = ("tsl_sdr_tpu", "tsl_sdr_tpu_torch")
 
 
 def _resolved_version() -> str:
@@ -41,15 +44,17 @@ def _write_stamp(target_dir: str, version: str) -> None:
 class build_py(_build_py):
     def run(self):
         super().run()
-        _write_stamp(os.path.join(self.build_lib, "tsl_sdr_tpu"),
-                     self.distribution.metadata.version)
+        for pkg in STAMPED:
+            _write_stamp(os.path.join(self.build_lib, pkg),
+                         self.distribution.metadata.version)
 
 
 class sdist(_sdist):
     def make_release_tree(self, base_dir, files):
         super().make_release_tree(base_dir, files)
-        _write_stamp(os.path.join(base_dir, "tsl_sdr_tpu"),
-                     self.distribution.metadata.version)
+        for pkg in STAMPED:
+            _write_stamp(os.path.join(base_dir, pkg),
+                         self.distribution.metadata.version)
 
 
 setup(version=_resolved_version(), cmdclass={"build_py": build_py,

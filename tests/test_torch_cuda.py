@@ -498,6 +498,28 @@ def test_host_path_on_the_card_matches_push(cuda, pager_capture):
     assert got == want and sum(map(len, got)) == len(specs)
 
 
+@pytest.mark.parametrize("exact", [False, True], ids=["fused", "exact"])
+def test_pipeline_soak_seed_on_the_card(cuda, exact):
+    """``bench/torch_soak_pipeline.py``'s seed 1 (FLEX, AIS and POCSAG at
+    decimation 24: K3 at 5/16 and 3/4, K4 at 15/16) on the card: the
+    engine decodes what the host path decodes, all three bursts."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_soak_pipeline",
+        Path(__file__).resolve().parents[1] / "bench"
+        / "torch_soak_pipeline.py")
+    soak = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(soak)
+    before = (k3.row_resample.launches + k3.row_resample.launches_q14,
+              k4.frame_resample.launches)
+    got, want = soak.run_seed(1, exact=exact, device=cuda)
+    after = (k3.row_resample.launches + k3.row_resample.launches_q14,
+             k4.frame_resample.launches)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert got == want and sum(map(len, got)) == 3
+
+
 def test_cli_device_count_guard(cuda, tmp_path, capsys):
     """pipeline-torch refuses a mesh larger than the CUDA devices it sees,
     with pipeline-tpu's message."""

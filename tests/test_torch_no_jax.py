@@ -12,7 +12,8 @@ on a FIFO, a fourth ``multifm-torch --exact`` (both I/O runtimes) and
 own generators, a fifth the Costas coherent chain (both tiers lock on a
 BPSK channel) and Mueller-Muller clock recovery, a sixth the weak-scaling
 witness, ``design-filter-torch``, the coefficient dumps and the nine
-top-level names. No file of the port, and not ``chip_smoke.py``, imports
+top-level names, a seventh the pipeline soak (one seed a tier), the
+deployment soak's writer and leg arguments, and the version. No file of the port, and not ``chip_smoke.py``, imports
 either package.
 """
 
@@ -284,6 +285,30 @@ print("NO-JAX SURFACE OK")
 """
 
 
+_SOAK_SCRIPT = _BLOCK + r"""
+import importlib.util
+
+def bench(name):
+    spec = importlib.util.spec_from_file_location(name, f"bench/{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+soak = bench("torch_soak_pipeline")
+assert soak.main(1, device="cpu") == 0
+assert soak.main(1, exact=True, device="cpu") == 0
+dep = bench("torch_soak_deployment")
+sec = dep.PacedWriter("unused.fifo", 0)._second(0)
+assert sec.shape == (dep.FS, 2) and sec.dtype.name == "int16"
+argv = dep.leg_argv("c.json", "iq.fifo", "o.jsonl", "s.npz", standby=True)
+assert argv[0] == "tsl_sdr_tpu_torch.cli.pipeline" and "--standby" in argv
+import tsl_sdr_tpu_torch
+assert tsl_sdr_tpu_torch.__version__
+""" + _CHECK + r"""
+print("NO-JAX SOAK OK")
+"""
+
+
 def _run_no_jax(script: str, token: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -316,6 +341,10 @@ def test_surface_runs_without_jax():
     _run_no_jax(_SURFACE_SCRIPT, "NO-JAX SURFACE OK")
 
 
+def test_soaks_and_version_run_without_jax():
+    _run_no_jax(_SOAK_SCRIPT, "NO-JAX SOAK OK")
+
+
 def test_no_port_file_imports_jax():
     """No ``import``/``from`` of jax, jaxlib, ml_dtypes or ``tsl_sdr_tpu``
     (``tsl_sdr_tpu_torch`` is the port itself) in the port, ``chip_smoke.py``
@@ -338,6 +367,8 @@ def test_no_port_file_imports_jax():
             "tsl_sdr_tpu_torch/utils/diag.py",
             "tsl_sdr_tpu_torch/parallel/_mh_scaling_worker.py",
             "tsl_sdr_tpu_torch/cli/design_filter.py",
-            "bench/torch_k1_lab.py", "bench/torch_k9_lab.py"} <= names
+            "bench/torch_k1_lab.py", "bench/torch_k9_lab.py",
+            "bench/torch_soak_pipeline.py", "bench/torch_soak_deployment.py",
+            "tsl_sdr_tpu_torch/_version.py"} <= names
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders

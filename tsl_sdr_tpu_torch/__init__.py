@@ -39,9 +39,6 @@ what it needs of the JAX package's jax-free modules it keeps as its own
 copy, under the same module name.
 """
 
-__version__ = "0.1.0"
-
-
 _LAZY = {
     "MultifmChain": ("tsl_sdr_tpu_torch.models.channelizer", "MultifmChain"),
     "ResamplerChain": ("tsl_sdr_tpu_torch.models.resampler",
@@ -60,7 +57,13 @@ _LAZY = {
 
 def __getattr__(name):
     """The JAX package's nine top-level names, each imported at first use
-    (importing the package loads no model and no CUDA state)."""
+    (importing the package loads no model and no CUDA state), and
+    ``__version__``, resolved at first use by ``_version`` (its git
+    subprocess would otherwise tax every import)."""
+    if name == "__version__":
+        from tsl_sdr_tpu_torch._version import __version__ as v
+
+        return v
     if name in _LAZY:
         import importlib
 
