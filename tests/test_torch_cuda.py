@@ -398,6 +398,38 @@ def test_drain_async_on_the_card_equals_sync(cuda, pager_capture):
         [1_100_000 + 1_000 * k + 8 * (k >= 6)] for k in range(8)]
 
 
+def test_the_pinned_ring_has_its_spans_on_the_card(cuda, pager_capture):
+    """On the card each upload goes through the pinned ring: its spans
+    (``engine.upload.pin_copy`` every block, ``engine.upload.ring_wait``
+    from the third, when a slot comes round again) nest in
+    ``engine.upload`` in the profiler's record, and their keys lie inside
+    ``upload_s``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    iq, _ = pager_capture
+    pipe = _pager_pipe(cuda)
+    pipe.timing = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pager_run(pipe, iq, [0, len(iq)])
+    ranges = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.is_user_annotation() and e.device_type() == DeviceType.CPU]
+    uploads = [r for r in ranges if r[0] == "engine.upload"]
+    blocks = pipe.stream_stats["blocks"]
+    assert len(uploads) == blocks
+    for name, n in (("engine.upload.pin_copy", blocks),
+                    ("engine.upload.ring_wait", blocks - 2)):
+        mine = [r for r in ranges if r[0] == name]
+        assert len(mine) == n, name
+        assert all(any(u[1] <= a and b <= u[2] for u in uploads)
+                   for _, a, b in mine), name
+    tm = pipe.timing
+    assert tm["pin_copy_s"] > 0
+    assert tm["upload_s"] >= tm["pin_copy_s"] + tm["ring_wait_s"]
+
+
 def _legs(first, second, iq, path, split=2_100_000):
     a = _pager_pipe(first, drain_async=True)
     got = [list(ch) for ch in a.push(iq[:split])]

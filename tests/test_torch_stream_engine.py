@@ -167,9 +167,9 @@ def test_stream_reset_joins_worker_with_entries_queued(capture):
 
 
 def test_tick_from_many_threads_loses_no_update():
-    """``_tick`` is a read-modify-write of ``timing``; under the lock no
-    update is lost with more threads than cores and a tiny switch
-    interval. Each tick adds (its own return value - t0)."""
+    """A span's exit is a read-modify-write of ``timing``; under the lock
+    no update is lost with more threads than cores and a tiny switch
+    interval. Each span adds its own ``seconds``."""
     pipe = _port()
     pipe.timing = {}
     n_threads, n_ticks = 16, 2_000
@@ -177,7 +177,9 @@ def test_tick_from_many_threads_loses_no_update():
 
     def hammer(k):
         for _ in range(n_ticks):
-            sums[k] += pipe._tick("x", 0.0)
+            with pipe._trace("x", "x") as span:
+                pass
+            sums[k] += span.seconds
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -191,7 +193,8 @@ def test_tick_from_many_threads_loses_no_update():
     finally:
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
-    # one lost update would miss a whole perf_counter() reading
+    # one lost update would miss a span's seconds, about one in 32,000 of
+    # the sum
     assert pipe.timing["x"] == pytest.approx(sum(sums), rel=1e-9)
 
 

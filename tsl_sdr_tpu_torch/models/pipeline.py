@@ -47,10 +47,58 @@ the drain worker), polarity inversion, each ratio group's exact resampler
 DC blocker (its kernel) and the decoders, every carry threaded. No
 prefilter or gating: its contract is the reference's PCM, bit for bit, at
 any push split. It cannot checkpoint (as in the JAX package).
+
+Tracing: ``pipe.timing = {}`` turns on the engine's spans
+(:meth:`ReceivePipeline._trace`), from every thread that runs them. Each
+adds its host seconds to a key of ``pipe.timing``; while a
+``torch.profiler`` records, each is also a ``record_function`` of its
+name, so the profiler's record holds it on the clock of the device's
+events. A key is its spans' self time (their duration less their child
+spans'), except that a span whose key lies inside its parent's key, as
+marked below, leaves its time in the parent's key too. With ``pipe.timing = None``, the default, a span costs
+one attribute test. Production tier, by nesting:
+
+====================================  ==============  ====================
+span                                  key             covers
+====================================  ==============  ====================
+``engine.pump``                       pump_s          ``_pump_blocks``'
+                                                      buffering
+``engine.dispatch``                   dispatch_s      ``MeshEngine.step``
+                                                      less the upload
+``engine.upload``                     upload_s        the whole of
+                                                      ``_upload``
+``engine.upload.ring_wait``           ring_wait_s     the ring slot's last
+                                      (in upload_s)   copy, on the card
+``engine.upload.pin_copy``            pin_copy_s      the copy into the
+                                      (in upload_s)   pinned slot, the H2D
+                                                      enqueue
+``engine.step.launch``                launch_s        widen, K1, the
+                                      (in dispatch_s) resamplers, finish,
+                                                      state merges
+``engine.egress_start``               egress_start_s  the ``HostCopy``
+                                                      starts
+``engine.queue_wait``                 queue_wait_s    handing a block to
+                                                      the drain worker
+``engine.drain``                      --              a block's drain
+``engine.drain.wait``                 drain_wait_s    each
+                                                      ``HostCopy.numpy``
+``engine.drain.unpack``               unpack_s        unpacking a fetched
+                                                      row, splicing gaps
+``decoders.<protocol>``               decode_s        a decoder's scan
+``engine.drain.tails``                tails_s         the gated rows'
+                                                      tails, ``lead_drop``
+====================================  ==============  ====================
+
+``engine.dispatch`` holds the upload, the launches and the egress start;
+``engine.drain`` the waits, unpacks, decoders and tails. The bit-exact tier
+has ``engine.dispatch`` (dispatch_s) and ``engine.drain`` holding
+``engine.drain.fir_end`` (fir_end_s), ``engine.drain.resample`` (rs_s) and
+the decoders' spans.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -83,6 +131,51 @@ PROTOCOL_RATES = {"pocsag": 38_400, "flex": 16_000, "ais": 48_000}
 _TORCH_WIRE = {np.dtype(np.int16): torch.int16,
                np.dtype(np.int8): torch.int8,
                np.dtype(np.uint8): torch.uint8}
+
+# keys whose spans' time also counts in the key of the span they nest in
+_INSIDE = {"ring_wait_s": "upload_s", "pin_copy_s": "upload_s",
+           "launch_s": "dispatch_s"}
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Span:
+    """One span of :meth:`ReceivePipeline._trace` while tracing is on;
+    ``seconds`` is what it added to its key."""
+
+    __slots__ = ("pipe", "name", "key", "up", "inner", "rec", "t0",
+                 "seconds")
+
+    def __init__(self, pipe, name: str, key):
+        self.pipe, self.name, self.key = pipe, name, key
+
+    def __enter__(self):
+        top = self.pipe._trace_top
+        self.up = getattr(top, "span", None)
+        top.span = self
+        self.inner = 0.0
+        self.rec = None
+        if torch.autograd.profiler._is_profiler_enabled:
+            self.rec = torch.autograd.profiler.record_function(self.name)
+            self.rec.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dur = time.perf_counter() - self.t0
+        if self.rec is not None:
+            self.rec.__exit__(*exc)
+        pipe, up = self.pipe, self.up
+        pipe._trace_top.span = up
+        if up is not None:
+            inside = up.key is not None and _INSIDE.get(self.key) == up.key
+            up.inner += self.inner if inside else dur
+        self.seconds = dur - self.inner
+        if self.key is not None:
+            with pipe._timing_lock:
+                tm = pipe.timing
+                if tm is not None:
+                    tm[self.key] = tm.get(self.key, 0.0) + self.seconds
+        return False
 
 
 def _make_decoder(protocol: str, freq_hz: int, ais_packet_hook=None):
@@ -387,14 +480,12 @@ class ReceivePipeline:
         self.wire_fmt = wire_fmt
         self._wire_dtype = np.dtype(WIRE_DTYPES[wire_fmt])
         self._wire_zero = WIRE_ZERO[wire_fmt]
-        # e2e breakdown instrumentation: set ``pipe.timing = {}`` and the
-        # engine accumulates HOST-BLOCKED seconds per phase (upload /
-        # dispatch / egress start / drain wait / unpack / decode) from
-        # every thread. They sum to wall time only with drain_async=False;
-        # with the worker, its drain phases overlap the dispatch thread's.
-        # None = no overhead.
+        # the spans' seconds by key (module docstring, "Tracing"); None:
+        # spans off. With the drain worker its spans overlap the dispatch
+        # thread's, so the keys sum to more than the wall time
         self.timing = None
         self._timing_lock = threading.Lock()
+        self._trace_top = threading.local()   # each thread's open span
         self.drain_async = bool(drain_async)
         self._ais_packet_hook = ais_packet_hook
         # what the checkpoint fingerprint hashes beside the chain's own
@@ -446,6 +537,7 @@ class ReceivePipeline:
                 self._ratio_gid.append(gid)
             self._decoders.append(_make_decoder(
                 spec.protocol, spec.center_freq_hz, self._ais_packet_hook))
+        self._decode_spans = [f"decoders.{c.protocol}" for c in self.channels]
 
         self._setup_stream(block_size)
         self._engine = None
@@ -673,7 +765,8 @@ class ReceivePipeline:
         :meth:`_drain_entry` are drained by ``drain_one(s, entry, new)``
         into ``s`` (never into a later stream) on one thread, in order.
         ``drain_one`` is :meth:`_drain` (production) or
-        :meth:`_drain_exact_fir` (bit-exact)."""
+        :meth:`_drain_exact_fir` (bit-exact), each in an ``engine.drain``
+        span."""
         s["drain_one"] = drain_one
         # bounded: a lagging worker holds push() back instead of letting
         # undrained device buffers pile up
@@ -700,7 +793,8 @@ class ReceivePipeline:
                     continue  # poisoned: discard, the error surfaces on push
                 try:
                     part = [[] for _ in self.channels]
-                    drain_one(s, entry, part)
+                    with self._trace("engine.drain"):
+                        drain_one(s, entry, part)
                     with s["dlock"]:
                         for c, msgs in enumerate(part):
                             s["dres"][c].extend(msgs)
@@ -726,10 +820,12 @@ class ReceivePipeline:
         """Drain one in-flight block of stream ``s``: inline, or queued to
         its worker (results ready so far fold into ``new``)."""
         if s.get("dthread") is None:
-            s["drain_one"](s, entry, new)
+            with self._trace("engine.drain"):
+                s["drain_one"](s, entry, new)
             return
         self._collect(s, new)
-        s["dq"].put(entry)
+        with self._trace("engine.queue_wait", "queue_wait_s"):
+            s["dq"].put(entry)
 
     def _drain_barrier(self, s: dict, new: list):
         """Wait until every block queued to ``s``'s worker is drained and
@@ -797,29 +893,32 @@ class ReceivePipeline:
         """The input path of both engines: hold data until the chain prefix
         is covered, prime the stream ``self.<attr>`` with ``init_fn``,
         buffer, and yield full block_size blocks."""
-        if self.wire_fmt == "cs16":
-            iq = np.asarray(iq, np.int16).reshape(-1, 2)
-        else:
-            iq = self._coerce_wire(iq)
-        if getattr(self, attr) is None:
-            c_len = self.chain.carry_len
-            pend = np.concatenate([self._pending_prefix, iq])
-            if pend.shape[0] < c_len + 1:
-                self._pending_prefix = pend
-                return
-            init_fn(pend[:c_len] if c_len else None)
-            self._pending_prefix = np.zeros((0, 2), self._wire_dtype)
-            iq = pend[c_len:]
         s = getattr(self, attr)
-        s["buf"].append(iq)
-        s["buf_len"] += iq.shape[0]
+        with self._trace("engine.pump", "pump_s"):
+            if self.wire_fmt == "cs16":
+                iq = np.asarray(iq, np.int16).reshape(-1, 2)
+            else:
+                iq = self._coerce_wire(iq)
+            if s is None:
+                c_len = self.chain.carry_len
+                pend = np.concatenate([self._pending_prefix, iq])
+                if pend.shape[0] < c_len + 1:
+                    self._pending_prefix = pend
+                    return
+                init_fn(pend[:c_len] if c_len else None)
+                self._pending_prefix = np.zeros((0, 2), self._wire_dtype)
+                iq = pend[c_len:]
+                s = getattr(self, attr)
+            s["buf"].append(iq)
+            s["buf_len"] += iq.shape[0]
         while s["buf_len"] >= self.block_size:
-            buf = (np.concatenate(s["buf"]) if len(s["buf"]) > 1
-                   else s["buf"][0])
-            block = buf[: self.block_size]
-            rest = buf[self.block_size:]
-            s["buf"] = [rest] if rest.shape[0] else []
-            s["buf_len"] = rest.shape[0]
+            with self._trace("engine.pump", "pump_s"):
+                buf = (np.concatenate(s["buf"]) if len(s["buf"]) > 1
+                       else s["buf"][0])
+                block = buf[: self.block_size]
+                rest = buf[self.block_size:]
+                s["buf"] = [rest] if rest.shape[0] else []
+                s["buf_len"] = rest.shape[0]
             yield block
 
     def _flush_unprimed(self) -> list:
@@ -831,15 +930,14 @@ class ReceivePipeline:
                 f"{self.chain.carry_len} samples); nothing processed")
         return [[] for _ in self.channels]
 
-    def _tick(self, key: str, t0: float) -> float:
-        """Accumulate host-blocked seconds into ``self.timing[key]`` (the
-        dispatch thread and the drain worker both call it)."""
-        t1 = time.perf_counter()
-        with self._timing_lock:
-            tm = self.timing
-            if tm is not None:
-                tm[key] = tm.get(key, 0.0) + (t1 - t0)
-        return t1
+    def _trace(self, name: str, key: str | None = None):
+        """A span of the engine (module docstring, "Tracing") as a context
+        manager: ``name`` in the profiler's record, its self time added to
+        ``self.timing[key]`` (no key: none). A shared no-op while
+        ``self.timing`` is None."""
+        if self.timing is None:
+            return _NO_SPAN
+        return _Span(self, name, key)
 
     def _upload(self, flat: np.ndarray, device=None) -> torch.Tensor:
         """Host values -> tensor on ``device`` (default the pipeline's).
@@ -858,40 +956,40 @@ class ReceivePipeline:
         slot = ring[1][ring[0]]
         ring[0] = (ring[0] + 1) % len(ring[1])
         if slot[1] is not None:
-            slot[1].synchronize()
-        np.copyto(slot[0].numpy(), flat)
-        vals = slot[0].to(device, non_blocking=True)
+            with self._trace("engine.upload.ring_wait", "ring_wait_s"):
+                slot[1].synchronize()
+        with self._trace("engine.upload.pin_copy", "pin_copy_s"):
+            np.copyto(slot[0].numpy(), flat)
+            vals = slot[0].to(device, non_blocking=True)
         slot[1] = torch.cuda.Event()
         slot[1].record(torch.cuda.current_stream(device))
         return vals
 
     def _dispatch(self, block: np.ndarray, valid_n: int | None = None):
-        tm = self.timing
         s = self._stream
         prog = self._program(block.shape[0])
         flat = np.ascontiguousarray(block).reshape(-1)
-        # uploads, K1 and the resamplers a time span at a time, the rest
-        # on the first device (one span and one bank without a mesh). Over
-        # a multi-process mesh this is where the ranks' messages and
-        # gather happen: here, on the dispatch thread, in the same order on
-        # every rank, never on the drain worker
-        s["st"], outs = self._engine.step(s["st"], flat, s)
-        if tm is not None:
-            t0 = time.perf_counter()
-        # start device->host copies now so they overlap the next block's
-        # compute. Hot groups stream their whole payload; cold (idle)
-        # groups only the small flags+tail head (egress gating).
-        pack_out, raw_out = outs
-        pre = {}
-        for pgid, combined in pack_out.items():
-            if s["hot"][pgid]:
-                pre[pgid] = ("full", HostCopy(combined))
-            else:
-                pre[pgid] = ("head", HostCopy(
-                    combined[:, :prog.meta_bytes[pgid]]))
-        raws = {rgid: HostCopy(rows) for rgid, rows in raw_out.items()}
-        if tm is not None:
-            self._tick("egress_start_s", t0)
+        with self._trace("engine.dispatch", "dispatch_s"):
+            # uploads, K1 and the resamplers a time span at a time, the
+            # rest on the first device (one span and one bank without a
+            # mesh). Over a multi-process mesh this is where the ranks'
+            # messages and gather happen: here, on the dispatch thread, in
+            # the same order on every rank, never on the drain worker
+            s["st"], outs = self._engine.step(s["st"], flat, s)
+            # start device->host copies now so they overlap the next
+            # block's compute. Hot groups stream their whole payload; cold
+            # (idle) groups only the small flags+tail head (egress gating).
+            with self._trace("engine.egress_start", "egress_start_s"):
+                pack_out, raw_out = outs
+                pre = {}
+                for pgid, combined in pack_out.items():
+                    if s["hot"][pgid]:
+                        pre[pgid] = ("full", HostCopy(combined))
+                    else:
+                        pre[pgid] = ("head", HostCopy(
+                            combined[:, :prog.meta_bytes[pgid]]))
+                raws = {rgid: HostCopy(rows)
+                        for rgid, rows in raw_out.items()}
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
         s["inflight"].append((prog, pack_out, pre, raws, valid_n, stream))
@@ -911,23 +1009,16 @@ class ReceivePipeline:
     def _drain(self, s: dict, entry, new: list):
         """Decode one block of stream ``s`` into ``new``: wait for its
         device->host copies, unpack, splice gaps, scan."""
-        tm = self.timing
-        if tm is not None:
-            t0 = time.perf_counter()
         prog, pack_out, pre, raw_copies, valid_n, stream = entry
-        raws = {rgid: cp.numpy() for rgid, cp in raw_copies.items()}
-        if tm is not None:
-            t0 = self._tick("drain_wait_s", t0)
+        with self._trace("engine.drain.wait", "drain_wait_s"):
+            raws = {rgid: cp.numpy() for rgid, cp in raw_copies.items()}
 
         s["blocks"] += 1
         for pgid, pg in self._pack_groups.items():
             mb = prog.meta_bytes[pgid]
             kind, copy = pre[pgid]
-            if tm is not None:
-                t0 = time.perf_counter()
-            host = copy.numpy()
-            if tm is not None:
-                t0 = self._tick("drain_wait_s", t0)
+            with self._trace("engine.drain.wait", "drain_wait_s"):
+                host = copy.numpy()
             meta = host[:, :mb]
             flags = meta[:, 0].astype(bool)
             tail_cols = meta[:, 1:mb]
@@ -947,12 +1038,9 @@ class ReceivePipeline:
                 else:
                     # cold group turning active: fetch the whole payload
                     # once (a rare edge) and index on the host
-                    if tm is not None:
-                        t0 = time.perf_counter()
-                    full = HostCopy(pack_out[pgid], stream).numpy()
-                    packed = full[np.asarray(need_rows), mb:]
-                    if tm is not None:
-                        t0 = self._tick("drain_wait_s", t0)
+                    with self._trace("engine.drain.wait", "drain_wait_s"):
+                        full = HostCopy(pack_out[pgid], stream).numpy()
+                        packed = full[np.asarray(need_rows), mb:]
             s["hot"][pgid] = bool(need_rows)
             # the zero-history resampler transient (lead_drop) is consumed
             # by EVERY block's outputs, fetched or gated
@@ -961,49 +1049,47 @@ class ReceivePipeline:
                 if ld0[i]:
                     vk = self._valid_k(prog, i, valid_n)
                     s["lead_drop"][i] = max(ld0[i] - vk, 0)
-            if tm is not None:
-                t0 = time.perf_counter()
             for j, row in enumerate(need_rows):
                 i = pg["idx"][row]
-                s["fetched"][i] += 1
                 dec = self._decoders[i]
-                vk = self._valid_k(prog, i, valid_n)
-                if pcm_kind:
-                    pcm = packed[j][:vk].astype(np.int16)
-                else:
-                    bits = np.unpackbits(packed[j])[:vk]
-                    pcm = (np.where(bits, 1, -1) if is_gt
-                           else np.where(bits, -1, 1)).astype(np.int16)
-                if ld0[i]:
-                    pcm = pcm[min(ld0[i], len(pcm)):]
-                if s["gap"][i]:
-                    dec.notify_gap()
-                    tp = s["tail_pcm"][i]
-                    if tp is not None:
-                        pcm = np.concatenate([tp, pcm])
-                    s["gap"][i] = False
-                if tm is not None:
-                    t0 = self._tick("unpack_s", t0)
-                new[i].extend(dec.scan(pcm))
-                if tm is not None:
-                    t0 = self._tick("decode_s", t0)
-            for row, i in enumerate(pg["idx"]):
-                if row not in need_rows:
-                    s["gap"][i] = True
-                if pcm_kind:
-                    tail = tail_cols[row].astype(np.int16)
-                else:
-                    tb = np.unpackbits(tail_cols[row])
-                    tail = (np.where(tb, 1, -1) if is_gt
-                            else np.where(tb, -1, 1)).astype(np.int16)
-                if ld0[i]:
-                    # the tail covers output positions [vk-T, vk); if the
-                    # transient reaches into it, its head is fabricated
+                with self._trace("engine.drain.unpack", "unpack_s"):
+                    s["fetched"][i] += 1
                     vk = self._valid_k(prog, i, valid_n)
-                    cut = min(ld0[i], vk) - (vk - len(tail))
-                    if cut > 0:
-                        tail = tail[cut:]
-                s["tail_pcm"][i] = tail
+                    if pcm_kind:
+                        pcm = packed[j][:vk].astype(np.int16)
+                    else:
+                        bits = np.unpackbits(packed[j])[:vk]
+                        pcm = (np.where(bits, 1, -1) if is_gt
+                               else np.where(bits, -1, 1)).astype(np.int16)
+                    if ld0[i]:
+                        pcm = pcm[min(ld0[i], len(pcm)):]
+                    if s["gap"][i]:
+                        dec.notify_gap()
+                        tp = s["tail_pcm"][i]
+                        if tp is not None:
+                            pcm = np.concatenate([tp, pcm])
+                        s["gap"][i] = False
+                with self._trace(self._decode_spans[i], "decode_s"):
+                    new[i].extend(dec.scan(pcm))
+            with self._trace("engine.drain.tails", "tails_s"):
+                for row, i in enumerate(pg["idx"]):
+                    if row not in need_rows:
+                        s["gap"][i] = True
+                    if pcm_kind:
+                        tail = tail_cols[row].astype(np.int16)
+                    else:
+                        tb = np.unpackbits(tail_cols[row])
+                        tail = (np.where(tb, 1, -1) if is_gt
+                                else np.where(tb, -1, 1)).astype(np.int16)
+                    if ld0[i]:
+                        # the tail covers output positions [vk-T, vk); if
+                        # the transient reaches into it, its head is
+                        # fabricated
+                        vk = self._valid_k(prog, i, valid_n)
+                        cut = min(ld0[i], vk) - (vk - len(tail))
+                        if cut > 0:
+                            tail = tail[cut:]
+                    s["tail_pcm"][i] = tail
 
         for rgid, idxs in self._raw_groups.items():
             rows = raws[rgid]
@@ -1016,14 +1102,11 @@ class ReceivePipeline:
                     audio = audio[take:]
                     s["lead_drop"][i] = ld - take
                 dec = self._decoders[i]
-                if tm is not None:
-                    t0 = time.perf_counter()
-                if dec is None:
-                    new[i].append(audio)
-                else:
-                    new[i].extend(dec.scan(audio))
-                if tm is not None:
-                    t0 = self._tick("decode_s", t0)
+                with self._trace(self._decode_spans[i], "decode_s"):
+                    if dec is None:
+                        new[i].append(audio)
+                    else:
+                        new[i].extend(dec.scan(audio))
 
     def flush(self) -> list:
         """Drain in-flight blocks (waiting for the drain worker, if any)
@@ -1107,27 +1190,19 @@ class ReceivePipeline:
             self._start_drain_worker(self._xstream, self._drain_exact_fir)
 
     def _dispatch_exact(self, block: np.ndarray):
-        tm = self.timing
-        if tm is not None:
-            t0 = time.perf_counter()
         # 8-bit wire blocks upload raw and widen on the device, by the host
         # rules bit for bit (only the tiny stream prefix widens on the host)
         x = self._xstream
-        x["st"], pending = self.chain.step_exact_packed_begin(
-            x["st"], block, wire_fmt=self.wire_fmt)
-        if tm is not None:
-            self._tick("dispatch_s", t0)
+        with self._trace("engine.dispatch", "dispatch_s"):
+            x["st"], pending = self.chain.step_exact_packed_begin(
+                x["st"], block, wire_fmt=self.wire_fmt)
         x["inflight"].append(pending)
 
     def _drain_exact_fir(self, x: dict, pending, new: list):
         """Finish one dispatched exact block of stream ``x`` and run the
         stages after the channelizer on its PCM."""
-        tm = self.timing
-        if tm is not None:
-            t0 = time.perf_counter()
-        pcm = self.chain.step_exact_packed_end(pending)
-        if tm is not None:
-            self._tick("fir_end_s", t0)
+        with self._trace("engine.drain.fir_end", "fir_end_s"):
+            pcm = self.chain.step_exact_packed_end(pending)
         self._drain_exact(x, pcm, new)
 
     def _stack_rs_states(self, gid, prefixes: np.ndarray) -> torch.Tensor:
@@ -1169,18 +1244,14 @@ class ReceivePipeline:
             n_in = rs.plan.block_in
             chunks = buf.shape[1] // n_in
             if chunks:
-                tm = self.timing
-                if tm is not None:
-                    t0 = time.perf_counter()
                 # every whole step of the group's rows in one launch
-                x["g_rs_st"][gid], out = rs.steps(
-                    x["g_rs_st"][gid],
-                    torch.from_numpy(np.ascontiguousarray(
-                        buf[:, :chunks * n_in])).to(self.device))
-                outs = out.cpu().numpy()
-                buf = buf[:, chunks * n_in:]
-                if tm is not None:
-                    self._tick("rs_s", t0)
+                with self._trace("engine.drain.resample", "rs_s"):
+                    x["g_rs_st"][gid], out = rs.steps(
+                        x["g_rs_st"][gid],
+                        torch.from_numpy(np.ascontiguousarray(
+                            buf[:, :chunks * n_in])).to(self.device))
+                    outs = out.cpu().numpy()
+                    buf = buf[:, chunks * n_in:]
             else:
                 outs = np.zeros((len(idxs), 0), np.int16)
             x["g_abuf"][gid] = buf
@@ -1197,16 +1268,12 @@ class ReceivePipeline:
             return
         if self.channels[i].dc_block:
             audio = self._exact_dc(x["dc_st"][i], i, audio)
-        tm = self.timing
-        if tm is not None:
-            t0 = time.perf_counter()
-        dec = self._decoders[i]
-        if dec is None:
-            new[i].append(np.asarray(audio, np.int16))
-        else:
-            new[i].extend(dec.scan(np.asarray(audio)))
-        if tm is not None:
-            self._tick("decode_s", t0)
+        with self._trace(self._decode_spans[i], "decode_s"):
+            dec = self._decoders[i]
+            if dec is None:
+                new[i].append(np.asarray(audio, np.int16))
+            else:
+                new[i].extend(dec.scan(np.asarray(audio)))
 
     def _flush_exact(self) -> list:
         x = self._xstream
@@ -1224,7 +1291,8 @@ class ReceivePipeline:
             if usable:
                 x["st"], pending = self.chain.step_exact_packed_begin(
                     x["st"], self._widen_host(buf[:usable]))
-                self._drain_exact_fir(x, pending, new)
+                with self._trace("engine.drain"):
+                    self._drain_exact_fir(x, pending, new)
             x["buf"] = []
             x["buf_len"] = 0
         # sub-block_in resampler tails: one shorter step per group, chained

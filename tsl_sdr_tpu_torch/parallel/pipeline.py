@@ -51,8 +51,6 @@ decides what is gathered.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -127,9 +125,10 @@ class MeshEngine:
     def step(self, st: dict, flat: np.ndarray, stats: dict):
         """One block of flat wire values: (state, values) -> (state,
         (pack_out, raw_out)), both on the pipeline's device; adds this
-        process's uploads and halos to ``stats``."""
+        process's uploads and halos to ``stats`` (the stream dict). The
+        spans ``engine.upload`` and ``engine.step.launch`` split it (the
+        pipeline module's docstring, "Tracing")."""
         pipe, mesh = self.pipe, self.mesh
-        clock = time.perf_counter()
         if flat.size != 2 * pipe.block_size:
             raise ValueError(f"blocks are {pipe.block_size} samples, "
                              f"got {flat.size // 2}")
@@ -165,48 +164,50 @@ class MeshEngine:
             uploaded = {}
             for c in range(self.cols):
                 dev = mesh.devices[t, c]
-                if dev not in uploaded:
-                    clock = pipe._tick("dispatch_s", clock)
-                    vals = pipe._upload(host, dev)
-                    clock = pipe._tick("upload_s", clock)
-                    uploaded[dev] = widen_wire(vals, pipe.wire_fmt)
-                pieces[c, t], end = self._span(
-                    c, t, dev, uploaded[dev], (b - a) // 2,
-                    start[c] if t == 0 else None)
+                fresh = dev not in uploaded
+                if fresh:
+                    with pipe._trace("engine.upload", "upload_s"):
+                        vals = pipe._upload(host, dev)
+                with pipe._trace("engine.step.launch", "launch_s"):
+                    if fresh:
+                        uploaded[dev] = widen_wire(vals, pipe.wire_fmt)
+                    pieces[c, t], end = self._span(
+                        c, t, dev, uploaded[dev], (b - a) // 2,
+                        start[c] if t == 0 else None)
                 if t == n_t - 1:
                     ends[c] = end
         if mesh.multiprocess:
             # whole rows, a size fixed by the configuration: what a rank's
             # drain saw (egress gating's "hot") never changes it
             pieces, ends = self._gather(pieces, ends)
-        states, pack, raw = [], {}, {}
-        for c in range(self.cols):
-            bank = self.bank(c, home[c])
-            ch_rows = {i: cat_on([pieces[c, t][i] for t in range(n_t)],
-                                 home[c])
-                       for i in range(bank.lo, bank.hi)}
-            prog = pipe._program(pipe.block_size, bank)
-            dc2, tails2, (pack_c, raw_c) = prog.finish(
-                start[c]["dc"], start[c]["tails"], ch_rows)
-            chain_end, rs_end = ends[c]
-            states.append({
-                "chain": chain_end._replace(
-                    carry_vals=chain_end.carry_vals.to(home[c]),
-                    prev_r=chain_end.prev_r.to(home[c]),
-                    prev_i=chain_end.prev_i.to(home[c]),
-                    out_index=st["chain"].out_index
-                    + pipe.block_size // pipe.chain.decimation),
-                "rs": {g: v.to(home[c]) for g, v in rs_end.items()},
-                "dc": dc2, "tails": tails2})
-            for out, part in ((pack, pack_c), (raw, raw_c)):
-                for key, v in part.items():
-                    out.setdefault(key, []).append(v.to(pipe.device))
-        st2 = _Bank.merge_states(
-            [self.bank(c, home[c]) for c in range(self.cols)], states,
-            pipe.device)
-        outs = ({k: cat_on(v, pipe.device) for k, v in pack.items()},
-                {k: cat_on(v, pipe.device) for k, v in raw.items()})
-        pipe._tick("dispatch_s", clock)
+        with pipe._trace("engine.step.launch", "launch_s"):
+            states, pack, raw = [], {}, {}
+            for c in range(self.cols):
+                bank = self.bank(c, home[c])
+                ch_rows = {i: cat_on([pieces[c, t][i] for t in range(n_t)],
+                                     home[c])
+                           for i in range(bank.lo, bank.hi)}
+                prog = pipe._program(pipe.block_size, bank)
+                dc2, tails2, (pack_c, raw_c) = prog.finish(
+                    start[c]["dc"], start[c]["tails"], ch_rows)
+                chain_end, rs_end = ends[c]
+                states.append({
+                    "chain": chain_end._replace(
+                        carry_vals=chain_end.carry_vals.to(home[c]),
+                        prev_r=chain_end.prev_r.to(home[c]),
+                        prev_i=chain_end.prev_i.to(home[c]),
+                        out_index=st["chain"].out_index
+                        + pipe.block_size // pipe.chain.decimation),
+                    "rs": {g: v.to(home[c]) for g, v in rs_end.items()},
+                    "dc": dc2, "tails": tails2})
+                for out, part in ((pack, pack_c), (raw, raw_c)):
+                    for key, v in part.items():
+                        out.setdefault(key, []).append(v.to(pipe.device))
+            st2 = _Bank.merge_states(
+                [self.bank(c, home[c]) for c in range(self.cols)], states,
+                pipe.device)
+            outs = ({k: cat_on(v, pipe.device) for k, v in pack.items()},
+                    {k: cat_on(v, pipe.device) for k, v in raw.items()})
         return st2, outs
 
     def _span(self, c: int, t: int, dev, vals: torch.Tensor, n: int,
