@@ -430,6 +430,56 @@ def test_the_pinned_ring_has_its_spans_on_the_card(cuda, pager_capture):
     assert tm["upload_s"] >= tm["pin_copy_s"] + tm["ring_wait_s"]
 
 
+def test_an_upload_above_the_threshold_is_split_and_equal(cuda):
+    """An upload of three parts' bytes is copied into its pinned slot in
+    parts by the pool of copy threads and arrives byte for byte, through
+    both slots of the ring and the first slot again; each counts in
+    ``uploads`` and ``upload_split``."""
+    from tsl_sdr_tpu_torch.models import pipeline as tpipe
+    from tsl_sdr_tpu_torch.runtime import native
+
+    pipe = _pager_pipe(cuda)
+    n = 3 * tpipe.PIN_COPY_PART_BYTES // 2 + 7
+    parts = tpipe.pin_copy_parts(2 * n)
+    assert parts > 1
+    stats = {"uploads": 0, "upload_split": 0}
+    for seed in range(3):
+        flat = _iq(-(-n // 2), seed).reshape(-1)[:n]
+        vals = pipe._upload(flat, cuda, stats)
+        assert torch.equal(vals.cpu(), torch.from_numpy(flat)), seed
+    assert stats == {"uploads": 3, "upload_split": 3}
+    assert native.pin_copy_threads() >= parts - 1
+
+
+def test_a_pager_block_under_the_threshold_is_one_copy(cuda, pager_capture,
+                                                       monkeypatch):
+    """The pager's 491,520-sample blocks (1.97 MB of cs16) are under two
+    parts' bytes: every upload through the ring is one copy on the
+    dispatch thread, the pool of copy threads is never called, and every
+    burst decodes."""
+    from tsl_sdr_tpu_torch.models import pipeline as tpipe
+    from tsl_sdr_tpu_torch.runtime import native
+
+    def never(*args):
+        raise AssertionError("a copy under the threshold reached the pool")
+
+    monkeypatch.setattr(native, "pin_copy", never)
+    iq, _ = pager_capture
+    pipe = _pager_pipe(cuda)
+    n = pipe.block_size * 4
+    assert n < 2 * tpipe.PIN_COPY_PART_BYTES
+    got = [[] for _ in pipe.channels]
+    for c, part in enumerate(pipe.push(iq)):
+        got[c].extend(part)
+    st = pipe.stream_stats
+    assert st["uploads"] == st["upload_bytes"] // n > 0
+    assert st["upload_split"] == 0
+    for c, part in enumerate(pipe.flush()):
+        got[c].extend(part)
+    assert [[m.capcode for m in ch] for ch in got] == [
+        [1_100_000 + 1_000 * k + 8 * (k >= 6)] for k in range(8)]
+
+
 def _legs(first, second, iq, path, split=2_100_000):
     a = _pager_pipe(first, drain_async=True)
     got = [list(ch) for ch in a.push(iq[:split])]

@@ -70,8 +70,9 @@ span                                  key             covers
 ``engine.upload.ring_wait``           ring_wait_s     the ring slot's last
                                       (in upload_s)   copy, on the card
 ``engine.upload.pin_copy``            pin_copy_s      the copy into the
-                                      (in upload_s)   pinned slot, the H2D
-                                                      enqueue
+                                      (in upload_s)   pinned slot (in
+                                                      parts, note below),
+                                                      the H2D enqueue
 ``engine.step.launch``                launch_s        widen, K1, the
                                       (in dispatch_s) resamplers, finish,
                                                       state merges
@@ -88,6 +89,12 @@ span                                  key             covers
 ``engine.drain.tails``                tails_s         the gated rows'
                                                       tails, ``lead_drop``
 ====================================  ==============  ====================
+
+The copy into the pinned slot is in parts from two
+``PIN_COPY_PART_BYTES`` up, on up to ``PIN_COPY_MAX_PARTS`` threads, the
+dispatch thread one of them (:func:`pin_copy`); ``engine.upload.pin_copy``
+is the dispatch thread's wall time over it, one span an upload, and the
+copy's other threads open none.
 
 ``engine.dispatch`` holds the upload, the launches and the egress start;
 ``engine.drain`` the waits, unpacks, decoders and tails. The bit-exact tier
@@ -122,6 +129,7 @@ from tsl_sdr_tpu_torch.models.resampler import ResamplerChain
 from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
 from tsl_sdr_tpu_torch.ops import gate, polyphase, q14, sync_prefilter
 from tsl_sdr_tpu_torch.ops.q14 import to_int16
+from tsl_sdr_tpu_torch.runtime import native
 from tsl_sdr_tpu_torch.utils.filter_design import (
     design_rational_resampler_filter)
 from tsl_sdr_tpu_torch.utils.iq import WIRE_DTYPES, WIRE_ZERO, widen_iq_bytes
@@ -136,6 +144,43 @@ _TORCH_WIRE = {np.dtype(np.int16): torch.int16,
 _INSIDE = {"ring_wait_s": "upload_s", "pin_copy_s": "upload_s",
            "launch_s": "dispatch_s"}
 _NO_SPAN = contextlib.nullcontext()
+
+# An upload is copied into its pinned slot in one part for each this many
+# bytes, so one under twice this size stays a single copy on the dispatch
+# thread: a live block (4.9 MB of cs16 at the pager's 1.2288 Msps), the
+# 8-bit wires' blocks (8.4 MB at the default 4,194,304 samples), a mesh's
+# time spans. Measured on an H100's host (8 CPUs, bench/torch_pin_copy.py,
+# medians of 40): two parts copy 4, 8, 16 and 32 MiB in 0.34, 0.61, 1.06
+# and 2.00 ms against one part's 0.54, 0.97, 1.89 and 3.78, so a split
+# under 16 MiB would save at most 0.4 ms a copy.
+PIN_COPY_PART_BYTES = 8 << 20
+# The most parts (threads, the dispatch thread one of them) a copy into a
+# pinned slot takes. Measured as above on a 66.7 MB block (the airspy-8ch
+# cell's) from a 734 MB replay: 1, 2, 3, 4, 6 and 8 parts took 7.91, 5.35,
+# 3.65, 3.09, 2.29 and 1.92 ms; 8 is the fewest within 5 % of the best.
+PIN_COPY_MAX_PARTS = 8
+
+
+def pin_copy_parts(nbytes: int) -> int:
+    """The parts a copy of ``nbytes`` into a pinned slot takes: one for
+    each :data:`PIN_COPY_PART_BYTES`, at most :data:`PIN_COPY_MAX_PARTS`
+    and the CPUs this process may run on, at least one."""
+    return max(1, min(PIN_COPY_MAX_PARTS, len(os.sched_getaffinity(0)),
+                      nbytes // PIN_COPY_PART_BYTES))
+
+
+def pin_copy(dst: np.ndarray, src: np.ndarray) -> int:
+    """Copy ``src`` into ``dst``, both 1-D of one length and dtype, in
+    :func:`pin_copy_parts` parts: one part is ``np.copyto`` on the calling
+    thread, more go through the process's pool of copy threads
+    (:func:`tsl_sdr_tpu_torch.runtime.native.pin_copy`), the calling
+    thread copying the first. Returns the parts; a failed part raises."""
+    parts = pin_copy_parts(src.nbytes)
+    if parts == 1:
+        np.copyto(dst, src)
+    else:
+        native.pin_copy(dst, src, parts)
+    return parts
 
 
 class _Span:
@@ -749,6 +794,9 @@ class ReceivePipeline:
             "fetched": np.zeros(len(self.channels), np.int64),
             "upload_elems": 0,
             "upload_bytes": 0,
+            # uploads through the pinned ring; those copied in parts
+            "uploads": 0,
+            "upload_split": 0,
             # look-back rows each time span of a mesh took from the span
             # before it (host slices, or messages between ranks)
             "halo_bytes": 0,
@@ -849,19 +897,25 @@ class ReceivePipeline:
     @property
     def stream_stats(self) -> dict:
         """{"blocks": drained blocks, "fetched": per-channel full-row fetch
-        counts, "upload_elems", "upload_bytes", "halo_bytes"}: the
-        wire values and bytes this process uploaded, and the bytes of
-        look-back rows a mesh's time spans took from their neighbours."""
+        counts, "upload_elems", "upload_bytes", "uploads",
+        "upload_split", "halo_bytes"}: the wire values and bytes this
+        process uploaded, its uploads through the pinned ring (on the card;
+        none on the CPU) and those of them copied into their slot in more
+        than one part, and the bytes of look-back rows a mesh's time spans
+        took from their neighbours."""
         s = self._stream
         if s is None:
             if self._last_stream_stats is not None:
                 return dict(self._last_stream_stats)
             return {"blocks": 0,
                     "fetched": np.zeros(len(self.channels), np.int64),
-                    "upload_elems": 0, "upload_bytes": 0, "halo_bytes": 0}
+                    "upload_elems": 0, "upload_bytes": 0, "uploads": 0,
+                    "upload_split": 0, "halo_bytes": 0}
         return {"blocks": s["blocks"], "fetched": s["fetched"].copy(),
                 "upload_elems": s["upload_elems"],
                 "upload_bytes": s["upload_bytes"],
+                "uploads": s["uploads"],
+                "upload_split": s["upload_split"],
                 "halo_bytes": s["halo_bytes"]}
 
     def push(self, iq) -> list:
@@ -939,12 +993,19 @@ class ReceivePipeline:
             return _NO_SPAN
         return _Span(self, name, key)
 
-    def _upload(self, flat: np.ndarray, device=None) -> torch.Tensor:
-        """Host values -> tensor on ``device`` (default the pipeline's).
-        On the card: through a ring of two pinned staging buffers for each
-        length and device, copied with ``non_blocking=True``; a buffer is
-        refilled only after its previous copy has completed."""
-        device = self.device if device is None else torch.device(device)
+    def _upload(self, flat: np.ndarray, device, stats: dict
+                ) -> torch.Tensor:
+        """Host values -> tensor on ``device``. On the card: through a ring
+        of two pinned staging buffers for each length and device, copied
+        with ``non_blocking=True``; a buffer is refilled only after its
+        previous copy has completed. The copy into the buffer
+        (:func:`pin_copy`) is in parts from two ``PIN_COPY_PART_BYTES`` up,
+        on up to ``PIN_COPY_MAX_PARTS`` threads, the dispatch thread one of
+        them, which waits for every part before the H2D copy is enqueued;
+        ``engine.upload.pin_copy`` times the dispatch thread's wall time.
+        Counts ``stats["uploads"]`` and ``stats["upload_split"]`` (the
+        copies in parts)."""
+        device = torch.device(device)
         if device.type == "cpu":
             return torch.from_numpy(flat)
         key = (flat.shape[0], flat.dtype, device)
@@ -959,10 +1020,12 @@ class ReceivePipeline:
             with self._trace("engine.upload.ring_wait", "ring_wait_s"):
                 slot[1].synchronize()
         with self._trace("engine.upload.pin_copy", "pin_copy_s"):
-            np.copyto(slot[0].numpy(), flat)
+            parts = pin_copy(slot[0].numpy(), flat)
             vals = slot[0].to(device, non_blocking=True)
         slot[1] = torch.cuda.Event()
         slot[1].record(torch.cuda.current_stream(device))
+        stats["uploads"] += 1
+        stats["upload_split"] += parts > 1
         return vals
 
     def _dispatch(self, block: np.ndarray, valid_n: int | None = None):

@@ -167,7 +167,7 @@ class MeshEngine:
                 fresh = dev not in uploaded
                 if fresh:
                     with pipe._trace("engine.upload", "upload_s"):
-                        vals = pipe._upload(host, dev)
+                        vals = pipe._upload(host, dev, stats)
                 with pipe._trace("engine.step.launch", "launch_s"):
                     if fresh:
                         uploaded[dev] = widen_wire(vals, pipe.wire_fmt)

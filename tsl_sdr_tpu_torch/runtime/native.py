@@ -9,6 +9,9 @@ EPIPE-tolerant sink of ``multifm-torch``'s native runtime
 (:class:`NativeSource`, :class:`NativeSink`). The source is the JAX
 package's, copied whole.
 
+Beside it, ``native/pin_copy.cc``: the copy of a block into a pinned upload
+slot in parts on a persistent pool of threads (:func:`pin_copy`).
+
 The library is built with ``g++`` at first use into
 ``build/tsl_sdr_tpu_torch/`` beside the package, under a name keyed on a
 hash of the source and the command, so a changed source rebuilds and the
@@ -33,11 +36,13 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parents[1] / "native" / "tslstream.cc"
+PIN_COPY_SRC = SRC.with_name("pin_copy.cc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tsl_sdr_tpu_torch"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _LOCK = threading.Lock()
 _LIB = None
+_PIN_COPY = None
 
 _P = ctypes.c_void_p
 _SZ = ctypes.c_size_t
@@ -145,6 +150,49 @@ def load() -> ctypes.CDLL:
             fn.argtypes = argtypes
         _LIB = lib
         return lib
+
+
+def _pin_copy_lib() -> ctypes.CDLL:
+    """Build (if missing) and load ``pin_copy.cc``; raise if it cannot be
+    built."""
+    global _PIN_COPY
+    with _LOCK:
+        if _PIN_COPY is None:
+            lib = ctypes.CDLL(str(build_shared(PIN_COPY_SRC, "pin_copy",
+                                               "g++", CXX_FLAGS)))
+            lib.tsl_pin_copy.restype = ctypes.c_int
+            lib.tsl_pin_copy.argtypes = [_P, _P, _SZ, ctypes.c_int]
+            lib.tsl_pin_copy_threads.restype = ctypes.c_int
+            lib.tsl_pin_copy_threads.argtypes = []
+            _PIN_COPY = lib
+        return _PIN_COPY
+
+
+def pin_copy(dst: np.ndarray, src: np.ndarray, parts: int) -> None:
+    """Copy ``src`` into ``dst`` (1-D, one length and dtype, contiguous,
+    apart) as ``parts`` contiguous byte ranges: the calling thread copies
+    the first, the process's pool of threads the others, started at the
+    first copy that needs them and kept. The interpreter lock is released
+    for the copy. Raises ValueError for arrays it cannot copy, OSError when
+    a pool thread cannot start."""
+    if not (dst.ndim == 1 and dst.shape == src.shape
+            and dst.dtype == src.dtype and dst.flags.c_contiguous
+            and src.flags.c_contiguous and dst.flags.writeable):
+        raise ValueError(f"copy of {src.dtype}{src.shape} into "
+                         f"{dst.dtype}{dst.shape}: two contiguous 1-D "
+                         "arrays of one length and dtype")
+    if np.may_share_memory(dst, src):
+        raise ValueError("copy between overlapping arrays")
+    err = _pin_copy_lib().tsl_pin_copy(dst.ctypes.data, src.ctypes.data,
+                                       src.nbytes, parts)
+    if err:
+        raise OSError(err, f"copy in {parts} parts: {os.strerror(err)}")
+
+
+def pin_copy_threads() -> int:
+    """The threads of the pool :func:`pin_copy` keeps (0 until a copy of
+    more than one part)."""
+    return _PIN_COPY.tsl_pin_copy_threads() if _PIN_COPY is not None else 0
 
 
 def bch3121_decode_native(words: np.ndarray):
