@@ -113,7 +113,10 @@ of its own): ``out``, ``one``, ``noatan``, ``nodiv``, ``noprev``. Every
 other variant writes a defined output and is held against its plain torch
 version (exactly). A patch is a textual cut whose anchors must each occur
 exactly once in the current source, else the lab raises and names the
-anchor. Imports neither jax nor the JAX package.
+anchor. The variants are of the int16 instantiation (``tsl_chain_fm``);
+the tile body's kernels stay templates on the block's wire, so the
+shipped rtl_u8 instantiation still compiles in each, unused. Imports
+neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -296,7 +299,7 @@ TILE_HEAD = ("__device__ __forceinline__ void\n"
              "chain_tile(int tile_, bool carried_, uint8_t* xs_,\n"
              "           const int16_t* __restrict__ carry,\n")
 KERNEL_PARAMS = """\
-             const int16_t* __restrict__ block,
+             const BlockT* __restrict__ block,
              const uint2* __restrict__ w_hi,
              const uint2* __restrict__ w_lo,
              const int4* __restrict__ ktab,
@@ -322,8 +325,8 @@ int lab_ctas(int tiles, int n_blocks, int smem) {
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, chain_kernel,
-                                                    kThreads, smem) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &occ, chain_kernel<int16_t>, kThreads, smem) !=
           cudaSuccess) {
     return tiles;
   }
@@ -382,8 +385,9 @@ __device__ __forceinline__ void lab_wait() {
   asm volatile("cp.async.wait_group %0;\\n" :: "n"(kN));
 }
 
+template <typename BlockT>
 __device__ void lab_stage_rows(uint8_t* dst, const int16_t* carry,
-                               const int16_t* block, long long carry_vals,
+                               const BlockT* block, long long carry_vals,
                                long long total, int s0, int x_rows, int row,
                                int pitch) {
   const int per_row = row / 8;
@@ -391,8 +395,9 @@ __device__ void lab_stage_rows(uint8_t* dst, const int16_t* carry,
   for (int i = threadIdx.x; i < x_rows * per_row; i += kThreads) {
     const long long s = base + 8LL * i;
     const bool ok = s >= 0 && s < total;
-    const int16_t* src = !ok ? block
-        : s < carry_vals ? carry + s : block + (s - carry_vals);
+    const void* src = !ok ? (const void*)block
+        : s < carry_vals ? (const void*)(carry + s)
+                         : (const void*)(block + (s - carry_vals));
     lab_cp_async16(dst + (size_t)(i / per_row) * pitch + 16 * (i % per_row),
                    src, ok ? 16 : 0);
   }
@@ -403,6 +408,7 @@ __device__ void lab_stage_rows(uint8_t* dst, const int16_t* carry,
 CARRY_KERNEL = f"""\
 // lab: the persistent tile body; a tile after the first keeps the
 // previous one's look-back rows and the staged taps
+template <typename BlockT>
 {KERNEL_HEAD}{KERNEL_PARAMS} {{
 {RUN_RANGE}  for (int t = t0; t < t1; ++t) {{
     chain_tile(t, t > t0, nullptr, {TILE_ARGS});
@@ -415,6 +421,7 @@ CARRY_KERNEL = f"""\
 RING_KERNEL = f"""\
 // lab: the persistent tile body with LAB_NBUF row buffers: tile k + NBUF
 // - 1's rows load by cp.async while tile k's products and FM run
+template <typename BlockT>
 {KERNEL_HEAD}{KERNEL_PARAMS} {{
   extern __shared__ __align__(16) unsigned char smem[];
   const int pitch = 2 * row + kPitchPad;
@@ -814,7 +821,7 @@ def registers(log: str) -> str:
     out, on = [], False
     for line in log.splitlines():
         if "Compiling entry" in line:
-            on = "chain_kernel" in line or "bank_kernelILi0E" in line
+            on = "chain_kernelIsE" in line or "bank_kernelILi0E" in line
         elif on and ("registers" in line or "spill" in line):
             out.append(line.split("info    :")[-1].strip())
     return "; ".join(out)

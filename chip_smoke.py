@@ -26,6 +26,12 @@ row), the block's last stages (K7, K8, K9) and the Costas chain's NCO
    all -32768 against taps of +-32767): exactly equal (max |diff| 0); a
    block run as two halves must equal the whole; phase 6 repeats all of
    it at the decimation-50 pipeline's shape (16-row tiles, taps from L2);
+   K1's rtl_u8 instantiation (``tsl_chain_fm_rtl8``: the block read as
+   the RTL-SDR's bytes, widened to (u - 127) << 7 as it is staged) on
+   random bytes, every value among them, at the pipeline's block and at
+   ``etc/multifm_rtlsdr_8ch.json``'s (365 taps, decimation 40, 16,760,000
+   samples): against its plain version on the same bytes (<= 1 LSB, >=
+   99.9 % exact) and bit for bit against K1 on the bytes widened to int16;
 3. K3 (packed-row resampler, ``csrc/row_resampler.cu``, the same split)
    against its plain version in both output modes (f32 and q14) at its four
    shapes: the pipeline's [2 channels, 85 rows] FLEX 5/12 block, the
@@ -39,9 +45,10 @@ row), the block's last stages (K7, K8, K9) and the Costas chain's NCO
    through ``ReceivePipeline.push/flush``; every burst must decode, both
    runs must agree, both kernels must have launched, and every decoder must
    run its native tier;
-5. wall time per block, wideband Msps, and K1's and K3's times beside their
-   plain versions', their bounds and (K3) one float64 ``torch.bmm`` of the
-   same product (CUDA events, after warm-up, in turns);
+5. wall time per block, wideband Msps, and K1's (int16 and rtl_u8, the
+   latter on phase 4's bytes) and K3's times beside their plain versions',
+   their bounds and (K3) one float64 ``torch.bmm`` of the same product
+   (CUDA events, after warm-up, in turns);
 6. K1 at decimation 50 (as in phase 2); K4 (frame-form resampler,
    ``csrc/frame_resampler.cu``, the same split over the dense frame
    matrix) against its plain version, f32 and q14 outputs, exactly equal:
@@ -379,6 +386,7 @@ def launch_counts() -> dict:
     return {"chain_fm": k1.chain_fm.launches,
             "chain_fm_grouped": k1.chain_fm.grouped_launches,
             "chain_fm_bank": k1.chain_fm.bank_launches,
+            "chain_fm_rtl8": k1.chain_fm.wire8_launches,
             "exact_fir": k5.exact_fir.launches,
             "exact_fir_grouped": k5.exact_fir.grouped_launches,
             "row_resample": k3.row_resample.launches,
@@ -404,6 +412,7 @@ def zero_launch_counts() -> None:
     k1.chain_fm.launches = 0
     k1.chain_fm.grouped_launches = 0
     k1.chain_fm.bank_launches = 0
+    k1.chain_fm.wire8_launches = 0
     k5.exact_fir.launches = 0
     k5.exact_fir.grouped_launches = 0
     k3.row_resample.launches = 0
@@ -620,6 +629,57 @@ def check_chain(pipe, iq, device, where: str = "pager"):
                 f"K1 {where} {name}: two halves differ from the whole block")
         log(f"K1 ({where}) {name}: two halves == whole block")
     return worst
+
+
+def check_chain_rtl8(taps, rows: int, device, where: str) -> int:
+    """Phase 2: K1's rtl_u8 instantiation on ``rows`` rows of random
+    bytes (every value among them) after a widened carry: against its
+    plain version on the same bytes (<= 1 LSB, >= 99.9 % exact, the FM
+    carry equal) and bit for bit against K1 on the bytes widened to
+    int16. Returns the max |diff| in LSB against the plain version."""
+    import numpy as np
+    import torch
+
+    from tsl_sdr_tpu_torch.ops import chain as k1
+
+    plan = taps.plan
+    rng = np.random.default_rng(23)
+    raw = torch.from_numpy(rng.integers(0, 256, size=rows * plan.row,
+                                        dtype=np.uint8)).to(device)
+    carry = k1.widen_rtl_u8(torch.from_numpy(rng.integers(
+        0, 256, size=plan.carry_vals, dtype=np.uint8)).to(device))
+    prev0 = torch.zeros((2, plan.nr_channels), dtype=torch.float32,
+                        device=device)
+    got, gprev = k1.chain_fm(taps, carry, prev0, raw, "rtl_u8")
+    wide, wprev = k1.chain_fm(taps, carry, prev0, k1.widen_rtl_u8(raw))
+    ref, rprev = k1.chain_fm_plain(taps, carry, prev0, raw, "rtl_u8")
+    d = pcm_diff(got.cpu().numpy(), ref.cpu().numpy())
+    exact = float((d == 0).mean())
+    log(f"K1 rtl_u8 vs plain ({where}): rows={rows} (last tile "
+        f"{rows % taps.tile_rows}) max|diff|={int(d.max())} LSB, "
+        f"{exact:.4%} exact")
+    require(d.max() <= 1 and exact >= 0.999,
+            f"K1 rtl_u8 {where}: max diff {d.max()} LSB, {exact:.4%} exact")
+    require(torch.equal(gprev, rprev), f"K1 rtl_u8 {where}: FM carry "
+            f"differs from the plain version's")
+    require(torch.equal(got, wide) and torch.equal(gprev, wprev),
+            f"K1 rtl_u8 {where}: differs from K1 on the widened block")
+    log(f"K1 rtl_u8 ({where}) == K1 on the widened block, bit for bit")
+    return int(d.max())
+
+
+def rtlsdr_8ch_taps(device):
+    """K1's constants for ``etc/multifm_rtlsdr_8ch.json`` (365 taps,
+    decimation 40, 8 channels, one beyond fs/2) and the rows of its
+    16,760,000-sample block (the benchmark's rtlsdr-8ch block size)."""
+    from tsl_sdr_tpu_torch.models.channelizer import MultifmChain
+
+    cfg = json.loads((HERE / "etc/multifm_rtlsdr_8ch.json").read_text())
+    offs = [c["chanCenterFreq"] - cfg["centerFreqHz"]
+            for c in cfg["channels"]]
+    ch = MultifmChain(cfg["lpfTaps"], offs, cfg["sampleRateHz"],
+                      cfg["decimationFactor"], exact=False, device=device)
+    return ch.taps, 2 * 16_760_000 // ch.packed_plan.row
 
 
 def k3_shapes(pipe, device) -> dict:
@@ -4309,13 +4369,19 @@ def smoke(device: str) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
 
     k1_err = check_chain(pipe, iq, device)
+    rtl_taps, rtl_rows = rtlsdr_8ch_taps(device)
+    k1_rtl8_err = max(
+        check_chain_rtl8(pipe.chain.taps, pipe.block_size * 2
+                         // pipe.chain.packed_plan.row, device, "pager"),
+        check_chain_rtl8(rtl_taps, rtl_rows, device, "multifm_rtlsdr_8ch"))
+    del rtl_taps
     k3_args, k3_err = check_k3(pipe, device)
 
     totals = {}
     with tempfile.TemporaryDirectory() as tmp:
         run = on_path("the pager pipeline",
-                      ("chain_fm", "row_resample", "egress_gate",
-                       "dc_block_fast"),
+                      ("chain_fm", "chain_fm_rtl8", "row_resample",
+                       "egress_gate", "dc_block_fast"),
                       lambda: run_main_path(pager, iq, expected, device,
                                             Path(tmp)), totals)
 
@@ -4339,6 +4405,25 @@ def smoke(device: str) -> dict:
         f"{k1_t['call_ms']:.4f}), plain {k1_t['plain_ms']:.4f} ms, bound "
         f"{k1_t['bound_ms']:.5f} ms ({k1_t['bound_by']}), "
         f"{k1_t['bound_ms'] / k1_t['ms']:.1%} of it")
+    # K1 on the main path's rtl_u8 bytes (phase 4 pushes them)
+    raw = torch.from_numpy(pager.to_rtl_u8(
+        iq[plan.carry_len: plan.carry_len + pipe.block_size])
+        .reshape(-1)).to(device)
+    carry8 = k1.widen_rtl_u8(torch.from_numpy(
+        pager.to_rtl_u8(iq[: plan.carry_len]).reshape(-1)).to(device))
+    k1_rtl8_t = kernel_times(
+        lambda: k1.chain_fm_plain(taps, carry8, prev, raw, "rtl_u8"),
+        lambda: k1.chain_fm(taps, carry8, prev, raw, "rtl_u8"), 5, 50)
+    k1_rtl8_t["bound_ms"], k1_rtl8_t["bound_by"] = bound(
+        fir_macs(plan, rows),
+        nbytes(carry8, raw, taps.w_hi, taps.w_lo, taps.omega_row, prev)
+        + 2 * rows * plan.halfcols + nbytes(prev))
+    log(f"K1 rtl_u8 pipeline block ({rows} rows): kernel "
+        f"{k1_rtl8_t['ms']:.4f} ms (call {k1_rtl8_t['call_ms']:.4f}), "
+        f"plain {k1_rtl8_t['plain_ms']:.4f} ms, bound "
+        f"{k1_rtl8_t['bound_ms']:.5f} ms ({k1_rtl8_t['bound_by']}), "
+        f"{k1_rtl8_t['bound_ms'] / k1_rtl8_t['ms']:.1%} of it")
+    del raw, carry8
     k3_times = time_k3(k3_args)
     # the engine's whole step of one block (its upload and every device
     # stage, K1 and K3 included): back-to-back steps, so it is the larger
@@ -4390,6 +4475,10 @@ def smoke(device: str) -> dict:
              "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
              "replaces": "tsl_sdr_tpu/ops/pallas_chain.py:279",
              "max_abs_err": max(k1_err, front["k1_err"]), **k1_t},
+            {"name": "chain_fm_rtl8", "route": "cuda",
+             "source": "tsl_sdr_tpu_torch/csrc/chain.cu",
+             "replaces": "tsl_sdr_tpu/ops/pallas_chain.py:279",
+             "max_abs_err": k1_rtl8_err, **k1_rtl8_t},
             {"name": "row_resample", "route": "cuda",
              "source": "tsl_sdr_tpu_torch/csrc/row_resampler.cu",
              "replaces": "tsl_sdr_tpu/ops/pallas_resampler.py:119",

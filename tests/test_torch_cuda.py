@@ -12,7 +12,8 @@ too: the worker equals the inline drain, and a checkpoint moves between
 the card and the CPU.
 
 Tolerances: K1 <= 1 PCM LSB and >= 99.9 % exact (its float ops are written
-to match the plain version one to one, so it is exact in practice); K3 and
+to match the plain version one to one, so it is exact in practice), and
+K1 on rtl_u8 bytes EXACTLY equal to K1 on the widened block; K3 and
 K4 EXACTLY equal in both output modes (wrapping int32 sums, then one float32
 conversion and a power-of-two scale, or the integer Q.28 -> Q.14 rounding);
 the exact DC blocker EXACTLY equal (the same integer recurrence); K5
@@ -98,6 +99,46 @@ def test_chain_kernel_matches_plain(cuda, tiles, extra, decim):
     d = np.minimum(d, 32768 - d)
     assert d.max() <= 1 and (d == 0).mean() >= 0.999
     assert torch.equal(gprev, rprev)
+
+
+@pytest.mark.parametrize("rows", [52_375, 3 * 111 + 37])
+def test_chain_kernel_reads_rtl_u8_bytes(cuda, rows):
+    """K1's uint8_t instantiation at upstream's multifm_rtlsdr_8ch shape
+    (365 taps, decimation 40, 8 channels, one beyond fs/2): a block of
+    random bytes, every value among them, read as bytes equals K1 on the
+    block widened to int16, PCM and FM carry bit for bit, on a whole block
+    of the benchmark's rtlsdr-8ch cell (16,760,000 samples) and on a
+    ragged last tile."""
+    import json
+
+    cfg = json.loads((Path(__file__).resolve().parents[1]
+                      / "etc/multifm_rtlsdr_8ch.json").read_text())
+    offs = [c["chanCenterFreq"] - cfg["centerFreqHz"]
+            for c in cfg["channels"]]
+    ch = MultifmChain(cfg["lpfTaps"], offs, cfg["sampleRateHz"],
+                      cfg["decimationFactor"], exact=False, device=cuda)
+    plan = ch.packed_plan
+    assert ch.taps.body == "tile" and ch.taps.tile_rows == 111
+    rng = np.random.default_rng(23)
+    raw = torch.from_numpy(rng.integers(0, 256, size=rows * plan.row,
+                                        dtype=np.uint8)).to(cuda)
+    carry = k1.widen_rtl_u8(torch.from_numpy(rng.integers(
+        0, 256, size=plan.carry_vals, dtype=np.uint8)).to(cuda))
+    prev = torch.from_numpy(rng.normal(
+        scale=1e5, size=(2, plan.nr_channels)).astype(np.float32)).to(cuda)
+    before = (k1.chain_fm.launches, k1.chain_fm.wire8_launches)
+    got, gprev = k1.chain_fm(ch.taps, carry, prev, raw, "rtl_u8")
+    want, wprev = k1.chain_fm(ch.taps, carry, prev, k1.widen_rtl_u8(raw))
+    torch.cuda.synchronize()
+    assert (k1.chain_fm.launches, k1.chain_fm.wire8_launches) == (
+        before[0] + 2, before[1] + 1)
+    assert torch.equal(got, want) and torch.equal(gprev, wprev)
+    if rows < 1000:   # and the plain version, where it is quick
+        ref, rprev = k1.chain_fm_plain(ch.taps, carry, prev, raw, "rtl_u8")
+        d = np.abs(got.cpu().numpy().astype(np.int32) - ref.cpu().numpy())
+        d = np.minimum(d, 32768 - d)
+        assert d.max() <= 1 and (d == 0).mean() >= 0.999
+        assert torch.equal(gprev, rprev)
 
 
 @pytest.mark.parametrize("g,m", [(2, 85), (3, 9), (1, 1)])

@@ -15,7 +15,8 @@ import torch
 from tsl_sdr_tpu.ops import dc_blocker as jdcb
 from tsl_sdr_tpu.ops import sync_prefilter as jsp
 from tsl_sdr_tpu.utils.iq import IQ_FORMATS, WIRE_DTYPES, widen_iq_bytes
-from tsl_sdr_tpu_torch.models.pipeline import to_int16, widen_wire
+from tsl_sdr_tpu_torch.models.channelizer import widen_wire
+from tsl_sdr_tpu_torch.models.pipeline import to_int16
 from tsl_sdr_tpu_torch.ops import dc_blocker as dcb
 from tsl_sdr_tpu_torch.ops import sync_prefilter as sp
 

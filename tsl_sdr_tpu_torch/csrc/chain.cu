@@ -81,6 +81,21 @@
 //
 // Numerics: the FM stage is fm.cuh's, bit for bit the plain torch version
 // whenever the int32 accumulators agree (always: integer sums are exact).
+//
+// The 8-bit wire: the block operand is a template parameter. int16_t is
+// int16 IQ as it stands (cs16, and every wire the host or widen_wire has
+// widened); uint8_t is the RTL-SDR's raw bytes (rtl_u8), loaded 8 at a time
+// (8-byte loads where int16 takes 16) and widened in registers to
+// (u - 127) << 7, upstream's rtl_sdr_if.c rule and utils/iq.py
+// rtl_u8_to_q14 bit for bit, before the same byte-plane split (load8). So
+// the block crosses device memory once at 2 bytes a sample, not as bytes,
+// then an int16 copy twice their size, then that copy again. The widening
+// works on two 16-bit lanes of a register at once (3 operations for 2
+// values): widening value by value cost K1 17.7 % a block on the H100 at
+// multifm_rtlsdr_8ch (PERF.md). The carry stays int16 (the widened tail of
+// the previous block). Tested against the plain path on the widened block:
+// tests/test_torch_wire8.py (CPU) and tests/test_torch_cuda.py (this
+// kernel, at multifm_rtlsdr_8ch's shape).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,6 +179,27 @@ __device__ __forceinline__ void k_loop(imma::Acc (&acc)[2][kNtG],
   }
 }
 
+// eight consecutive block values as int16, in order: one 16-byte load of
+// int16 values, or one 8-byte load of rtl_u8 bytes, each pair spread into
+// the two 16-bit lanes of a register by __byte_perm and widened there:
+// (u << 7) - 16256 mod 2^16 is (u << 7) + 0x4080 with bit 15 flipped, and
+// (u << 7) + 0x4080 <= 0xC000 carries nothing into the next lane
+__device__ __forceinline__ uint4 load8(const int16_t* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ uint32_t widen2(uint32_t lanes) {
+  return ((lanes << 7) + 0x40804080u) ^ 0x80008000u;
+}
+
+__device__ __forceinline__ uint4 load8(const uint8_t* p) {
+  const uint2 b = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_uint4(widen2(__byte_perm(b.x, 0, 0x4140)),
+                    widen2(__byte_perm(b.x, 0, 0x4342)),
+                    widen2(__byte_perm(b.y, 0, 0x4140)),
+                    widen2(__byte_perm(b.y, 0, 0x4342)));
+}
+
 // grid = (channel blocks, row tiles from tile0); tile t owns output rows
 // [t*tr, t*tr + tr) of channels [c0, c0 + cpb) and recomputes the
 // accumulators of row t*tr - 1 (the look-back row) for the FM history of
@@ -174,10 +210,12 @@ __device__ __forceinline__ void k_loop(imma::Acc (&acc)[2][kNtG],
 // group's fragments step after step, its tiles side by side, and a
 // block's groups one after another (ops/chain.py ChainTaps). stage_taps:
 // copy the block's tap fragments to shared memory (else they are read from
-// device memory through L2). out: int16 [rows, hc].
+// device memory through L2). out: int16 [rows, hc]. BlockT: the block's
+// wire (load8).
+template <typename BlockT>
 __global__ void __launch_bounds__(kThreads)
 chain_kernel(const int16_t* __restrict__ carry,
-             const int16_t* __restrict__ block,
+             const BlockT* __restrict__ block,
              const uint2* __restrict__ w_hi,
              const uint2* __restrict__ w_lo,
              const int4* __restrict__ ktab,
@@ -221,7 +259,7 @@ chain_kernel(const int16_t* __restrict__ carry,
       if (i0 + u * kThreads < n_x && s >= 0 && s < total) {
         v[u] = s < carry_vals
             ? __ldg(reinterpret_cast<const uint4*>(carry + s))
-            : __ldg(reinterpret_cast<const uint4*>(block + (s - carry_vals)));
+            : load8(block + (s - carry_vals));
       }
     }
 #pragma unroll
@@ -380,7 +418,8 @@ chain_kernel(const int16_t* __restrict__ carry,
 
 // raise the kernel's shared-memory ceiling once per device (the attribute
 // applies to the current device only), not on every launch; then launch,
-// in runs of at most kMaxGridY row tiles
+// in runs of at most kMaxGridY row tiles; BlockT: the block's wire
+template <typename BlockT>
 int launch(const void* carry, const void* block, const void* w_hi,
            const void* w_lo, const void* ktab, const void* omega,
            const void* prev, void* out, void* prev_out, int rows, int row,
@@ -389,8 +428,8 @@ int launch(const void* carry, const void* block, const void* w_hi,
   if (rows <= 0 || tr <= 0 || (tr + 1) % 16 || row <= 0 || row % 32 ||
       u_len <= 0 || u_len > (cr + 1) * row || u_len > 32768 || nr_ch <= 0 ||
       opr <= 0 || cpb <= 0 || cpb > nr_ch || tap_bytes < 0 ||
-      tap_bytes % 512 || (uintptr_t)carry % 16 || (uintptr_t)block % 16 ||
-      (uintptr_t)ktab % 16) {
+      tap_bytes % 512 || (uintptr_t)carry % 16 ||
+      (uintptr_t)block % (8 * sizeof(BlockT)) || (uintptr_t)ktab % 16) {
     return (int)cudaErrorInvalidValue;
   }
   size_t smem = x_bytes(tr, row, cr) + acc_bytes(tr, opr * cpb);
@@ -403,7 +442,7 @@ int launch(const void* carry, const void* block, const void* w_hi,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices || (int)smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(chain_kernel,
+    err = cudaFuncSetAttribute(chain_kernel<BlockT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -414,8 +453,8 @@ int launch(const void* carry, const void* block, const void* w_hi,
   for (int t0 = 0; t0 < tiles; t0 += kMaxGridY) {
     const int run = tiles - t0 < kMaxGridY ? tiles - t0 : kMaxGridY;
     const dim3 grid(n_blocks, run);
-    chain_kernel<<<grid, kThreads, smem, stream>>>(
-        (const int16_t*)carry, (const int16_t*)block, (const uint2*)w_hi,
+    chain_kernel<BlockT><<<grid, kThreads, smem, stream>>>(
+        (const int16_t*)carry, (const BlockT*)block, (const uint2*)w_hi,
         (const uint2*)w_lo, (const int4*)ktab, (const float*)omega,
         (const float*)prev, (int16_t*)out, (float*)prev_out, rows, row, cr,
         (u_len + 31) / 32, nr_ch, opr, cpb, tr, t0, stage_taps);
@@ -442,9 +481,23 @@ extern "C" int tsl_chain_fm(const void* carry, const void* block,
                             int rows, int row, int cr, int u_len, int nr_ch,
                             int opr, int cpb, int tr, int tap_bytes,
                             void* stream) {
-  return launch(carry, block, w_hi, w_lo, ktab, omega, prev, out, prev_out,
-                rows, row, cr, u_len, nr_ch, opr, cpb, tr, tap_bytes,
-                (cudaStream_t)stream);
+  return launch<int16_t>(carry, block, w_hi, w_lo, ktab, omega, prev, out,
+                         prev_out, rows, row, cr, u_len, nr_ch, opr, cpb, tr,
+                         tap_bytes, (cudaStream_t)stream);
+}
+
+// tsl_chain_fm on a block of rtl_u8 bytes: block [rows*row] uint8, 8-byte
+// aligned, widened to (u - 127) << 7 as it is staged; the carry stays int16
+extern "C" int tsl_chain_fm_rtl8(const void* carry, const void* block,
+                                 const void* w_hi, const void* w_lo,
+                                 const void* ktab, const void* omega,
+                                 const void* prev, void* out, void* prev_out,
+                                 int rows, int row, int cr, int u_len,
+                                 int nr_ch, int opr, int cpb, int tr,
+                                 int tap_bytes, void* stream) {
+  return launch<uint8_t>(carry, block, w_hi, w_lo, ktab, omega, prev, out,
+                         prev_out, rows, row, cr, u_len, nr_ch, opr, cpb, tr,
+                         tap_bytes, (cudaStream_t)stream);
 }
 
 extern "C" const char* tsl_error_string(int err) {

@@ -40,6 +40,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "tsl_chain_fm": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "tsl_chain_fm_rtl8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tsl_chain_fm_bank": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tsl_exact_fir": [_P, _P, _P, _P, _P, _P,

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from tsl_sdr_tpu_torch.ops import fm, packed_fir, q14
-from tsl_sdr_tpu_torch.ops.chain import ChainTaps, chain_fm
+from tsl_sdr_tpu_torch.ops.chain import ChainTaps, chain_fm, widen_rtl_u8
 from tsl_sdr_tpu_torch.ops.exact_fir import exact_fir
 from tsl_sdr_tpu_torch.runtime.native import rotator_seq
 from tsl_sdr_tpu_torch.utils.iq import WIRE_DTYPES
@@ -56,7 +56,13 @@ def widen_wire(vals: torch.Tensor, wire_fmt: str) -> torch.Tensor:
     """Raw wire values -> int16 IQ values, on the device. An 8-bit block
     ships 2 B/sample instead of int16's 4 and widens here, bit-identical to
     the host rules in ``utils.iq.widen_iq_bytes`` (reference
-    ``multifm/rtl_sdr_if.c:118-147``, ``file_if.c:85-157``)."""
+    ``multifm/rtl_sdr_if.c:118-147``, ``file_if.c:85-157``).
+
+    The production tier's K1 reads rtl_u8 blocks itself in its tile body
+    (:meth:`ChainTaps.reads_wire`), so this serves the blocks K1 does not
+    read as they are: the bank body's (wide banks) and the other 8-bit
+    wires', the bit-exact tier's, and the int16 carry taken from a
+    block's tail."""
     if wire_fmt == "cs16":
         return vals
     if wire_fmt == "cs8":
@@ -64,7 +70,7 @@ def widen_wire(vals: torch.Tensor, wire_fmt: str) -> torch.Tensor:
     if wire_fmt in ("cu8", "cu8_unbiased"):
         return vals.to(torch.int16) - 127
     if wire_fmt == "rtl_u8":
-        return (vals.to(torch.int16) - 127) << 7
+        return widen_rtl_u8(vals)
     raise ValueError(f"unknown wire_fmt {wire_fmt!r}")
 
 
@@ -97,15 +103,19 @@ def capture_blocks(iq, block_size: int, quantum: int, carry_len: int):
     return (iq[:carry_len] if carry_len else None), blocks
 
 
-def step_raw(taps: ChainTaps, state: MultifmFastState, block: torch.Tensor):
+def step_raw(taps: ChainTaps, state: MultifmFastState, block: torch.Tensor,
+             wire_fmt: str = "cs16"):
     """One production-tier block through K1 (:func:`chain_fm`) with the
-    constants ``taps``: (state, flat interleaved int16 block [2N]) ->
-    (state, pcm [rows, opr*C] int16 in flat (k, c) order)."""
+    constants ``taps``: (state, flat interleaved block [2N] of
+    ``wire_fmt`` values) -> (state, pcm [rows, opr*C] int16 in flat (k, c)
+    order), for a wire K1 reads (``taps.reads_wire``; widen any other
+    first, :func:`widen_wire`); the int16 carry is the widened tail."""
     block = block.reshape(-1)
     prev = torch.stack([state.prev_r, state.prev_i])
-    pcm, prev2 = chain_fm(taps, state.carry_vals, prev, block)
-    carry = packed_fir.next_carry(state.carry_vals, block,
-                                  taps.plan.carry_vals)
+    pcm, prev2 = chain_fm(taps, state.carry_vals, prev, block, wire_fmt)
+    n = taps.plan.carry_vals
+    tail = widen_wire(block[max(0, block.numel() - n):], wire_fmt)
+    carry = packed_fir.next_carry(state.carry_vals, tail, n)
     return MultifmFastState(
         carry_vals=carry, prev_r=prev2[0], prev_i=prev2[1],
         out_index=state.out_index + pcm.numel() // taps.plan.nr_channels,

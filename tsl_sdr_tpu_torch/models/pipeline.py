@@ -7,7 +7,8 @@ tier every device stage of a block runs in one call,
 :meth:`tsl_sdr_tpu_torch.parallel.pipeline.MeshEngine.step` (a pipeline
 without a mesh has a one-device mesh: one time span, one bank):
 
-1. widen 8-bit wire bytes;
+1. widen 8-bit wire bytes that K1 does not read itself (it reads
+   rtl_u8 bytes in its tile body, ``ChainTaps.reads_wire``);
 2. channelize + FM-demodulate (kernel K1, ``ops.chain``);
 3. invert polarity;
 4. resample each ratio group, one launch for all channels of the group:
@@ -122,7 +123,7 @@ import torch
 
 from tsl_sdr_tpu_torch.models.ais import AisDecoder
 from tsl_sdr_tpu_torch.models.channelizer import (HostCopy, MultifmChain,
-                                                   step_raw, widen_wire)
+                                                   step_raw)
 from tsl_sdr_tpu_torch.models.flex import FlexDecoder
 from tsl_sdr_tpu_torch.models.pocsag import PocsagDecoder
 from tsl_sdr_tpu_torch.models.resampler import ResamplerChain
@@ -299,6 +300,10 @@ class _Bank:
         self.lo, self.hi = lo, hi
         self.device = torch.device(device)
         self.taps = taps
+        # the wire K1 reads: the pipeline's where the taps' body reads it
+        # (rtl_u8 in the tile body), else int16, widened once an upload
+        self.k1_wire = (pipe.wire_fmt if taps.reads_wire(pipe.wire_fmt)
+                        else "cs16")
 
         def mine(idxs):
             return [i for i in idxs if lo <= i < hi]
@@ -408,10 +413,12 @@ class _SizedProgram:
                 for gid, idxs in self.bank.rs_groups.items()}
 
     def channelize(self, chain_st, vals: torch.Tensor):
-        """K1 and the polarity flip: (chain state, flat int16 values) ->
-        (state, pcm [C_bank, K] int16)."""
+        """K1 and the polarity flip: (chain state, flat values of the wire
+        the bank's K1 reads, ``_Bank.k1_wire``) -> (state, pcm [C_bank, K]
+        int16)."""
         bank = self.bank
-        chain_st, pcm_flat = step_raw(bank.taps, chain_st, vals)
+        chain_st, pcm_flat = step_raw(bank.taps, chain_st, vals,
+                                      bank.k1_wire)
         pcm = pcm_flat.reshape(-1, bank.hi - bank.lo).T  # [C, K]
         if bank.inv_mask is not None:
             flipped = torch.clamp(-pcm.to(torch.int32), -32768,
@@ -797,6 +804,8 @@ class ReceivePipeline:
             # uploads through the pinned ring; those copied in parts
             "uploads": 0,
             "upload_split": 0,
+            # blocks whose K1 launches all read the 8-bit wire (rtl_u8)
+            "k1_wire8": 0,
             # look-back rows each time span of a mesh took from the span
             # before it (host slices, or messages between ranks)
             "halo_bytes": 0,
@@ -898,11 +907,12 @@ class ReceivePipeline:
     def stream_stats(self) -> dict:
         """{"blocks": drained blocks, "fetched": per-channel full-row fetch
         counts, "upload_elems", "upload_bytes", "uploads",
-        "upload_split", "halo_bytes"}: the wire values and bytes this
-        process uploaded, its uploads through the pinned ring (on the card;
-        none on the CPU) and those of them copied into their slot in more
-        than one part, and the bytes of look-back rows a mesh's time spans
-        took from their neighbours."""
+        "upload_split", "k1_wire8", "halo_bytes"}: the wire values and
+        bytes this process uploaded, its uploads through the pinned ring
+        (on the card; none on the CPU) and those of them copied into their
+        slot in more than one part, the blocks whose K1 read the rtl_u8
+        bytes as they came (no widen on the device), and the bytes of
+        look-back rows a mesh's time spans took from their neighbours."""
         s = self._stream
         if s is None:
             if self._last_stream_stats is not None:
@@ -910,12 +920,13 @@ class ReceivePipeline:
             return {"blocks": 0,
                     "fetched": np.zeros(len(self.channels), np.int64),
                     "upload_elems": 0, "upload_bytes": 0, "uploads": 0,
-                    "upload_split": 0, "halo_bytes": 0}
+                    "upload_split": 0, "k1_wire8": 0, "halo_bytes": 0}
         return {"blocks": s["blocks"], "fetched": s["fetched"].copy(),
                 "upload_elems": s["upload_elems"],
                 "upload_bytes": s["upload_bytes"],
                 "uploads": s["uploads"],
                 "upload_split": s["upload_split"],
+                "k1_wire8": s["k1_wire8"],
                 "halo_bytes": s["halo_bytes"]}
 
     def push(self, iq) -> list:

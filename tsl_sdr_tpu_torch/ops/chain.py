@@ -20,6 +20,15 @@ State layout (the JAX XLA tier's ``MultifmFastState``): ``cr`` rows of int16
 stream history and the previous baseband sample of each channel as a
 ``[2, C]`` float32 (re, im) tensor, which the kernel reads for the first
 output row and writes for the last.
+
+The 8-bit wire: the tile body also reads a block of the RTL-SDR's raw
+bytes (``wire="rtl_u8"``, its ``uint8_t`` instantiation,
+``tsl_chain_fm_rtl8``), 8 bytes a load, widening each to ``(u - 127) <<
+7`` (:func:`widen_rtl_u8`, ``utils.iq.rtl_u8_to_q14``) in registers as it
+stages it; the carry stays int16. The bank body reads int16 only
+(:meth:`ChainTaps.reads_wire`), so its callers widen first. Tested in
+``tests/test_torch_wire8.py`` (the plain path) and
+``tests/test_torch_cuda.py`` (the kernel against the widened block).
 """
 
 from __future__ import annotations
@@ -40,6 +49,16 @@ _GROUP = 4               # n8 tiles a warp multiplies together (kNtG)
 _KTAB_ROW = 16           # bytes of a ktab row (an int4)
 _FM_ITEMS = 8            # K1 bank items a tile, two warps each (kFmWarps)
 _EDGE_BYTES = 2 * 16 * 8 * 2 * 4   # an item's two edge phases (bank.cu)
+# the wires K1 takes, with their block dtype: int16 IQ in both bodies, the
+# RTL-SDR's bytes in the tile body
+K1_WIRES = {"cs16": torch.int16, "rtl_u8": torch.uint8}
+
+
+def widen_rtl_u8(vals: torch.Tensor) -> torch.Tensor:
+    """RTL-SDR bytes -> int16 IQ values: ``(u - 127) << 7`` (reference
+    ``multifm/rtl_sdr_if.c:147``), bit for bit ``utils.iq.rtl_u8_to_q14``
+    and what K1's ``uint8_t`` instantiation computes in registers."""
+    return (vals.to(torch.int16) - 127) << 7
 
 
 class ChainTaps:
@@ -136,6 +155,13 @@ class ChainTaps:
     def exact(self) -> ExactTaps:
         """K5's operands and launch shape, built at K5's first use."""
         return ExactTaps(self.plan, self._w, self.grouped, self.w_hi.device)
+
+    def reads_wire(self, wire_fmt: str) -> bool:
+        """Whether K1 takes a block of ``wire_fmt`` as it is
+        (:data:`K1_WIRES`): cs16 always, rtl_u8 in the tile body. Any
+        other block is widened to int16 first."""
+        return wire_fmt == "cs16" or (wire_fmt == "rtl_u8"
+                                      and self.body == "tile")
 
     @property
     def tiles_per_block(self) -> int:
@@ -437,18 +463,22 @@ def operands(w: np.ndarray, cols: np.ndarray, ranges: np.ndarray,
 
 
 def chain_fm(taps: ChainTaps, carry_vals: torch.Tensor, prev: torch.Tensor,
-             block: torch.Tensor):
+             block: torch.Tensor, wire: str = "cs16"):
     """One block of the fused chain.
 
-    carry_vals [cr*ROW] int16, prev [2, C] float32, block [rows*ROW] int16
-    (flat interleaved IQ). Returns (pcm [rows, halfcols] int16 in flat
-    (k, c) order, new prev [2, C] float32)."""
+    carry_vals [cr*ROW] int16, prev [2, C] float32, block [rows*ROW] (flat
+    interleaved IQ) int16, or uint8 for ``wire="rtl_u8"`` where
+    ``taps.reads_wire`` (the tile body). Returns (pcm [rows, halfcols]
+    int16 in flat (k, c) order, new prev [2, C] float32)."""
     if block.device.type == "cpu":
-        return chain_fm_plain(taps, carry_vals, prev, block)
+        return chain_fm_plain(taps, carry_vals, prev, block, wire)
     if block.device.type != "cuda":
         raise ValueError(f"chain_fm runs on cuda or cpu, not {block.device}")
+    if not taps.reads_wire(wire):
+        raise ValueError(f"K1's {taps.body} body does not read {wire!r} "
+                         f"blocks: widen the block to int16 first")
     plan = taps.plan
-    _check(block, torch.int16, (block.numel(),), "block")
+    _check(block, K1_WIRES[wire], (block.numel(),), "block")
     _check(carry_vals, torch.int16, (plan.carry_vals,), "carry_vals")
     _check(prev, torch.float32, (2, plan.nr_channels), "prev")
     for name, t in (("block", block), ("carry_vals", carry_vals),
@@ -456,9 +486,11 @@ def chain_fm(taps: ChainTaps, carry_vals: torch.Tensor, prev: torch.Tensor,
         if t.device != taps.w_hi.device:
             raise ValueError(f"{name} on {t.device}, taps on "
                              f"{taps.w_hi.device}")
+    # the kernel stages rows 8 values a load: 16 bytes of int16, 8 of uint8
     for name, t in (("block", block), ("carry_vals", carry_vals)):
-        if t.data_ptr() % 16:   # the kernel stages rows with 16-byte loads
-            raise ValueError(f"{name} must be 16-byte aligned")
+        align = 8 * t.element_size()
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
     rows = block.numel() // plan.row
     if rows == 0 or block.numel() % plan.row:
         raise ValueError(f"block of {block.numel()} values is not a whole, "
@@ -477,8 +509,9 @@ def chain_fm(taps: ChainTaps, carry_vals: torch.Tensor, prev: torch.Tensor,
             prev_out.data_ptr(), rows, plan.row, plan.cr_rows, plan.win,
             plan.nr_channels, plan.opr)
     if taps.body == "tile":
-        err = lib.tsl_chain_fm(*args, taps.chans_per_block, taps.tile_rows,
-                               taps.tap_block_bytes, stream)
+        fn = lib.tsl_chain_fm_rtl8 if wire == "rtl_u8" else lib.tsl_chain_fm
+        err = fn(*args, taps.chans_per_block, taps.tile_rows,
+                 taps.tap_block_bytes, stream)
     else:
         err = lib.tsl_chain_fm_bank(*args, taps.tiles_per_block,
                                     taps.tile_rows, taps.stages,
@@ -487,18 +520,27 @@ def chain_fm(taps: ChainTaps, carry_vals: torch.Tensor, prev: torch.Tensor,
     chain_fm.launches += 1
     chain_fm.grouped_launches += taps.grouped
     chain_fm.bank_launches += taps.body == "bank"
+    chain_fm.wire8_launches += wire == "rtl_u8"
     return out, prev_out
 
 
 chain_fm.launches = 0
 chain_fm.grouped_launches = 0   # launches with grouped operands
 chain_fm.bank_launches = 0      # launches of the bank body
+chain_fm.wire8_launches = 0     # launches that read rtl_u8 bytes
 
 
 def chain_fm_plain(taps: ChainTaps, carry_vals: torch.Tensor,
-                   prev: torch.Tensor, block: torch.Tensor):
+                   prev: torch.Tensor, block: torch.Tensor,
+                   wire: str = "cs16"):
     """Plain torch version of :func:`chain_fm` (float64 FIR products in the
-    taps' form, the same float32 discriminator), on any device."""
+    taps' form, the same float32 discriminator), on any device; an rtl_u8
+    block is widened (:func:`widen_rtl_u8`) first."""
+    if wire not in K1_WIRES:
+        raise ValueError(f"K1 reads {sorted(K1_WIRES)}, not {wire!r}: "
+                         f"widen the block to int16 first")
+    if wire == "rtl_u8":
+        block = widen_rtl_u8(block)
     p = taps.fir_sums(carry_vals, block).to(torch.float32)
     half = taps.plan.halfcols
     pcm, pr, pi_ = fm.fm_from_baseband(p[:, :half], p[:, half:], prev[0],

@@ -93,6 +93,9 @@ class MeshEngine:
         # one column on the pipeline's device: its own bank
         self._banks = {(0, pipe.device): pipe._bank} if self.cols == 1 \
             else {}
+        # whether every bank's K1 reads the rtl_u8 bytes as uploaded: a
+        # block then counts in stream_stats()["k1_wire8"]
+        self._wire8 = None
         plan = pipe.chain.packed_plan
         self.row, self.cr, self.opr = plan.row, plan.cr_rows, plan.opr
         self.spans = span_bounds(pipe.block_size, pipe.block_quantum,
@@ -161,21 +164,31 @@ class MeshEngine:
             stats["upload_elems"] += b - a
             stats["upload_bytes"] += (b - a) * flat.itemsize
             stats["halo_bytes"] += (a - lo) * flat.itemsize
+            # each device's values of the span by wire: as uploaded, and
+            # widened once where a bank's K1 does not read them
             uploaded = {}
             for c in range(self.cols):
                 dev = mesh.devices[t, c]
-                fresh = dev not in uploaded
-                if fresh:
+                if dev not in uploaded:
                     with pipe._trace("engine.upload", "upload_s"):
-                        vals = pipe._upload(host, dev, stats)
+                        uploaded[dev] = {
+                            pipe.wire_fmt: pipe._upload(host, dev, stats)}
+                bank = self.bank(c, dev)
+                vals = uploaded[dev]
                 with pipe._trace("engine.step.launch", "launch_s"):
-                    if fresh:
-                        uploaded[dev] = widen_wire(vals, pipe.wire_fmt)
+                    if bank.k1_wire not in vals:
+                        vals[bank.k1_wire] = widen_wire(vals[pipe.wire_fmt],
+                                                        pipe.wire_fmt)
                     pieces[c, t], end = self._span(
-                        c, t, dev, uploaded[dev], (b - a) // 2,
+                        c, t, dev, vals[bank.k1_wire], (b - a) // 2,
                         start[c] if t == 0 else None)
                 if t == n_t - 1:
                     ends[c] = end
+        if self._wire8 is None:   # fixed once a block has built its banks
+            self._wire8 = all(bank.k1_wire == "rtl_u8"
+                              for bank in self._banks.values())
+        if self._wire8:
+            stats["k1_wire8"] += 1
         if mesh.multiprocess:
             # whole rows, a size fixed by the configuration: what a rank's
             # drain saw (egress gating's "hot") never changes it
@@ -213,8 +226,10 @@ class MeshEngine:
     def _span(self, c: int, t: int, dev, vals: torch.Tensor, n: int,
               start):
         """K1 and the resamplers for channel shard ``c`` over time span
-        ``t`` (``n`` samples; ``vals`` its widened values, after the
-        look-back rows for ``t > 0``; ``start`` the block-start state for
+        ``t`` (``n`` samples; ``vals`` its values of the wire the bank's
+        K1 reads, after the look-back rows for ``t > 0``, whose history
+        rows are widened into K1's int16 carry; ``start`` the block-start
+        state for
         ``t == 0``). Returns ({channel: row after the resampler}, (chain
         state, resampler carries) at the span's end)."""
         pipe = self.pipe
@@ -227,7 +242,8 @@ class MeshEngine:
             cut = self.cr * self.row
             zero = torch.zeros(bank.hi - bank.lo, dtype=torch.float32,
                                device=dev)
-            st0 = MultifmFastState(carry_vals=vals[:cut].contiguous(),
+            st0 = MultifmFastState(carry_vals=widen_wire(
+                                       vals[:cut], bank.k1_wire).contiguous(),
                                    prev_r=zero, prev_i=zero.clone(),
                                    out_index=0)
             chain_st, pcm = prog.channelize(st0, vals[cut:])
